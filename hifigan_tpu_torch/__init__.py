@@ -1,0 +1,19 @@
+"""hifigan_tpu_torch — the PyTorch / CUDA port of hifigan_tpu for NVIDIA Hopper.
+
+Mirrors the JAX package's layout so each module's counterpart is easy to
+find; the JAX package stays the reference the port is tested against.
+
+- ``hifigan_tpu_torch.audio``  — wav I/O, STFT, log-mel pipeline
+- ``hifigan_tpu_torch.models`` — Generator V1/V2/V3, normed conv layers,
+  the low-latency fused-stage vocoder
+- ``hifigan_tpu_torch.ops``    — conv primitives and the CUDA kernels
+- ``hifigan_tpu_torch.train``  — generator checkpoint I/O
+- ``hifigan_tpu_torch.cli``    — inference CLIs
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from hifigan_tpu_torch.config import AttrDict, load_config  # noqa: F401
+from hifigan_tpu_torch.train.checkpoint import load_checkpoint, scan_checkpoint  # noqa: F401

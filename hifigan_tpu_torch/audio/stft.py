@@ -1,0 +1,50 @@
+"""STFT building blocks (PyTorch port of ``hifigan_tpu/audio/stft.py``).
+
+One spectrogram path, ``torch.fft.rfft``, following torch.stft conventions
+(periodic Hann, window centre-padded to n_fft, onesided, ``center=False``
+framing). The JAX package's DFT-as-matmul form is a TPU lowering choice with
+the same numerics and is not carried over.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def hann_window(win_size: int, dtype=np.float32) -> np.ndarray:
+    """Periodic Hann window, as torch.hann_window(periodic=True)."""
+    n = np.arange(win_size, dtype=np.float64)
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_size))
+    return w.astype(dtype)
+
+
+def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """(B, T) -> (B, F, n_fft) frames, F = 1 + (T - n_fft) // hop."""
+    return y.unfold(-1, n_fft, hop)
+
+
+def stft_real_imag(y: torch.Tensor, n_fft: int, hop: int,
+                   win_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Onesided STFT -> (real, imag), each (B, F, n_fft // 2 + 1). center=False."""
+    window = torch.from_numpy(hann_window(win_size)).to(y.device)
+    off = (n_fft - win_size) // 2
+    window = torch.nn.functional.pad(window, (off, n_fft - win_size - off))
+    z = torch.fft.rfft(frame_signal(y, n_fft, hop).float() * window, n=n_fft, dim=-1)
+    return z.real, z.imag
+
+
+def stft_power(y: torch.Tensor, n_fft: int, hop: int, win_size: int,
+               power: float = 2.0) -> torch.Tensor:
+    """|STFT|^power, shape (B, F, n_bins)."""
+    re, im = stft_real_imag(y, n_fft, hop, win_size)
+    p2 = re * re + im * im
+    if power == 2.0:
+        return p2
+    if power == 1.0:
+        return torch.sqrt(p2)
+    return torch.pow(p2, power / 2.0)
+
+
+def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win_size: int) -> torch.Tensor:
+    return stft_power(y, n_fft, hop, win_size, power=1.0)

@@ -1,0 +1,53 @@
+"""End-to-end inference CLI: precomputed mel (.npy) -> wav
+(port of ``hifigan_tpu/cli/infer_e2e.py``). Outputs ``*_generated_e2e.wav``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from hifigan_tpu_torch.audio import save_wav
+from hifigan_tpu_torch.cli.infer import load_generator_state, make_apply, to_pcm16
+from hifigan_tpu_torch.config import load_config
+from hifigan_tpu_torch.device import resolve_device
+
+
+def inference_e2e(a, h) -> list[str]:
+    device = resolve_device(a.device)
+    apply = make_apply(a, h, load_generator_state(a.checkpoint_file), device)
+    os.makedirs(a.output_dir, exist_ok=True)
+    written = []
+    for filename in sorted(os.listdir(a.input_mels_dir)):
+        if not filename.endswith(".npy"):
+            continue
+        x = torch.from_numpy(np.load(os.path.join(a.input_mels_dir, filename)))
+        y = apply(x if x.dim() == 3 else x[None])
+        out = os.path.join(a.output_dir, os.path.splitext(filename)[0] + "_generated_e2e.wav")
+        save_wav(out, to_pcm16(y[0, 0].float().cpu().numpy()), h["sampling_rate"])
+        print(out)
+        written.append(out)
+    return written
+
+
+def main(argv: list[str] | None = None) -> None:
+    print("Initializing Inference Process..")
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--input_mels_dir", default="test_mel_files")
+    parser.add_argument("--output_dir", default="generated_files_from_mel")
+    parser.add_argument("--checkpoint_file", required=True)
+    parser.add_argument("--fast", action="store_true",
+                        help="every MRF stage in the fused CUDA kernel (bf16)")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--streaming_chunk", type=int, default=0,
+                        help="not ported yet: raises when set")
+    a = parser.parse_args(argv)
+    h = load_config(os.path.join(os.path.split(a.checkpoint_file)[0], "config.json"))
+    inference_e2e(a, h)
+
+
+if __name__ == "__main__":
+    main()

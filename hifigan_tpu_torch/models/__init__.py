@@ -1,0 +1,2 @@
+from hifigan_tpu_torch.models.generator import Generator, ResBlock1, ResBlock2  # noqa: F401
+from hifigan_tpu_torch.models.layers import fold_weight_norm  # noqa: F401

@@ -1,0 +1,71 @@
+"""Low-latency vocoder with every MRF stage in the fused kernel.
+
+PyTorch port of ``hifigan_tpu/models/fast_infer.py::make_fast_vocoder``:
+conv_pre, the leaky ReLUs and the ConvTranspose1d upsamplers run as torch
+ops; every stage's MRF goes through
+:func:`hifigan_tpu_torch.ops.resblock_tail.fused_tail_stage`; conv_post is
+folded into the last stage's kernel unless ``fold_post=False``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from hifigan_tpu_torch.device import resolve_device
+from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, conv1d, conv_transpose1d, leaky_relu
+from hifigan_tpu_torch.ops.resblock_tail import (
+    fused_tail_stage,
+    pack_generator_tail,
+    prepare_post,
+)
+
+
+def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torch.bfloat16,
+                      device: str | torch.device | None = None, tile: int | None = None,
+                      fold_post: bool = True, fold_up: bool = False):
+    """(h, folded state_dict) -> fn(mel (B, M, T)) -> wav (B, 1, T * hop) float32.
+
+    Weights are packed once onto ``device`` (CUDA unless the caller passes
+    another; with no GPU that raises). Every stage's MRF runs in the
+    kernel: the JAX package's ``max_fused_ch`` / ``min_fused_stage`` exist
+    for the TPU's VMEM, and the CUDA kernel takes any width. ``tile`` fixes
+    the kernel's time tile (default: per call, from the batch and the
+    sequence length, see ``auto_tile``). ``fold_up`` (the upsampler folded
+    into the kernel) is not ported.
+    """
+    if fold_up:
+        raise NotImplementedError("fold_up (upsampler folded into the kernel) is not ported")
+    dev = resolve_device(device)
+    num_stages = len(h["upsample_rates"])
+
+    def param(name: str) -> torch.Tensor:
+        return folded_state_dict[name].detach().to(device=dev, dtype=dtype)
+
+    # torch layouts -> the ops' (K, I, O)
+    pre_w, pre_b = param("conv_pre.weight").permute(2, 1, 0), param("conv_pre.bias")
+    ups = [(param(f"ups.{i}.weight").permute(2, 0, 1), param(f"ups.{i}.bias"))
+           for i in range(num_stages)]
+    post_w, post_b = param("conv_post.weight").permute(2, 1, 0), param("conv_post.bias")
+
+    stages = [(u, k, pack_generator_tail(h, folded_state_dict, i, dtype=dtype, device=dev))
+              for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"]))]
+    post_pack = prepare_post(folded_state_dict, dtype=dtype, device=dev) if fold_post else None
+
+    @torch.no_grad()
+    def fn(mel: torch.Tensor) -> torch.Tensor:
+        x = mel.to(device=dev, dtype=dtype).transpose(1, 2)
+        x = conv1d(x, pre_w, pre_b, padding=3)
+        for i, (u, k, packed) in enumerate(stages):
+            x = leaky_relu(x, LRELU_SLOPE)
+            up_w, up_b = ups[i]
+            x = conv_transpose1d(x, up_w, up_b, stride=u, padding=(k - u) // 2).contiguous()
+            last_post = post_pack if i == num_stages - 1 else None
+            x = fused_tail_stage(x, packed, post_pack=last_post, tile=tile)
+        if post_pack is not None:
+            return x.transpose(1, 2)  # tail already folded in the kernel
+        x = conv1d(leaky_relu(x, 0.01), post_w, post_b, padding=3)
+        return torch.tanh(x).float().transpose(1, 2)
+
+    return fn

@@ -1,0 +1,83 @@
+"""Build the port's CUDA sources and load them with ctypes.
+
+Every ``hifigan_tpu_torch/csrc/*.cu`` is compiled on first use by its own
+``nvcc`` process (all started together) into a shared library with a plain
+C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+
+The libraries go to ``build/kernels/`` beside the package, named by a hash
+of their source, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: dict[str, float] = {}  # per source, of the build that ran in this process
+BUILD_LOGS: dict[str, str] = {}  # nvcc's output (ptxas register/shared-memory report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc was not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source whose library is missing, in parallel; return the paths."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {src.stem: _lib_path(src) for src in sorted(CSRC.glob("*.cu"))}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        start = time.perf_counter()
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_LOGS[name] = log
+            BUILD_SECONDS[name] = time.perf_counter() - start
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all()[name]))
+        _LIBS[name] = lib
+    return lib

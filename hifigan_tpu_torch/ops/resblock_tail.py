@@ -1,0 +1,254 @@
+"""Fused HiFi-GAN MRF stage: one CUDA kernel per stage, and its plain version.
+
+Replaces ``hifigan_tpu/ops/pallas/resblock_tail.py::fused_tail_stage`` (the
+Pallas call at :395). A stage computes, over x (B, T, C)::
+
+    out = mean_j ResBlock_j(x)       ResBlock: h <- h + conv(lrelu0.1(...))
+
+with 'same' dilated convs zero-padded at the true sequence edges before every
+conv, each conv's output rounded to the working dtype and the mean taken in
+fp32. ``post_pack`` folds the generator tail (lrelu 0.01 -> conv_post k7
+C->1 -> tanh) into the same pass and returns (B, T, 1) float32.
+
+The kernel (``csrc/resblock_tail.cu``) is bound by arithmetic: a V1 request
+of 256 mel frames at B=1 does about 152 GFLOP of MRF work, and the source
+note there says what the design does about that. The TPU kernel's
+time-blocked tables, lane folding and VMEM split heuristic are not carried
+over: the CUDA kernel takes the plain per-conv taps (K, C, C) and each conv's
+dilation, packed once on the host by :func:`pack_generator_tail`.
+
+- :func:`fused_tail_stage_reference` is the plain PyTorch version (conv by
+  conv with ``F.conv1d``, fp32 accumulation).
+- :func:`fused_tail_stage` takes the plain version for a CPU tensor; for a
+  CUDA tensor it launches the kernel or raises.
+- ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, leaky_relu
+
+LAUNCHES = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_POST_K = 7
+
+
+def _radius(k: int, d: int) -> int:
+    return (k - 1) * d // 2
+
+
+def prepare_tail_stage(convs: list[list[tuple[torch.Tensor, torch.Tensor, int]]],
+                       pair_size: int, dtype: torch.dtype = torch.float32,
+                       device: str | torch.device = "cpu") -> dict:
+    """Pack one stage's resblock convs for :func:`fused_tail_stage`.
+
+    convs: [resblock][conv] of (weight (O, I, K) in torch layout, bias (C,),
+    dilation), in execution order. pair_size: convs per residual connection
+    (2 for ResBlock1, 1 for ResBlock2). Taps are stored (K, C_in, C_out),
+    every conv's after the last, in ``dtype`` on ``device``.
+    """
+    n_per = {len(rb) for rb in convs}
+    if len(n_per) != 1:
+        raise ValueError("every resblock of a stage must have the same number of convs")
+    (convs_per_rb,) = n_per
+    if convs_per_rb % pair_size:
+        raise ValueError("convs per resblock must be a multiple of pair_size")
+    taps, biases, meta = [], [], []
+    off = 0
+    for rb in convs:
+        for weight, bias, d in rb:
+            k = int(weight.shape[2])
+            kio = weight.detach().permute(2, 1, 0).contiguous()
+            taps.append(kio.reshape(-1))
+            biases.append(bias.detach().reshape(-1))
+            meta.append((k, int(d), off))
+            off += kio.numel()
+    channels = int(convs[0][0][0].shape[0])
+    desc = torch.tensor([v for m in meta for v in m], dtype=torch.int32)
+    return {
+        "w": torch.cat(taps).to(device=device, dtype=dtype),
+        "bias": torch.stack(biases).to(device=device, dtype=dtype),
+        "desc": desc.to(device),
+        "convs": meta,
+        "n_rb": len(convs),
+        "convs_per_rb": convs_per_rb,
+        "pair_size": pair_size,
+        "channels": channels,
+        "halo": max(sum(_radius(k, d) for k, d, _ in meta[i:i + convs_per_rb])
+                    for i in range(0, len(meta), convs_per_rb)),
+    }
+
+
+def pack_generator_tail(h, state_dict: dict, stage_index: int,
+                        dtype: torch.dtype = torch.float32,
+                        device: str | torch.device = "cpu") -> dict:
+    """Stage ``stage_index``'s resblock convs from a folded Generator state_dict."""
+    num_kernels = len(h["resblock_kernel_sizes"])
+    is_rb1 = str(h["resblock"]) == "1"
+    convs = []
+    for j in range(num_kernels):
+        pre = f"resblocks.{stage_index * num_kernels + j}"
+        rb = []
+        for i, d in enumerate(h["resblock_dilation_sizes"][j]):
+            if is_rb1:
+                rb.append((state_dict[f"{pre}.convs1.{i}.weight"],
+                           state_dict[f"{pre}.convs1.{i}.bias"], d))
+                rb.append((state_dict[f"{pre}.convs2.{i}.weight"],
+                           state_dict[f"{pre}.convs2.{i}.bias"], 1))
+            else:
+                rb.append((state_dict[f"{pre}.convs.{i}.weight"],
+                           state_dict[f"{pre}.convs.{i}.bias"], d))
+        convs.append(rb)
+    return prepare_tail_stage(convs, 2 if is_rb1 else 1, dtype=dtype, device=device)
+
+
+def prepare_post(state_dict: dict, dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cpu") -> dict:
+    """Pack the generator's conv_post (k7, C -> 1) for folding into the last stage."""
+    weight = state_dict["conv_post.weight"].detach()  # (1, C, 7)
+    if weight.shape[0] != 1 or weight.shape[2] != _POST_K:
+        raise ValueError(f"conv_post must be (1, C, {_POST_K}), got {tuple(weight.shape)}")
+    return {
+        "w": weight[0].t().contiguous().to(device=device, dtype=dtype),  # (7, C)
+        "bias": state_dict["conv_post.bias"].detach().reshape(1).to(device=device, dtype=dtype),
+    }
+
+
+def _conv_f32(x: torch.Tensor, kio: torch.Tensor, bias: torch.Tensor, d: int) -> torch.Tensor:
+    """'same' conv over (B, C, T) with fp32 accumulation."""
+    k = kio.shape[0]
+    return F.conv1d(x.float(), kio.float().permute(2, 1, 0), bias.float(),
+                    padding=_radius(k, d), dilation=d)
+
+
+def fused_tail_stage_reference(x: torch.Tensor, packed: dict,
+                               post_pack: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_tail_stage`, conv by conv."""
+    dtype = x.dtype
+    c = packed["channels"]
+    xc = x.transpose(1, 2)
+    acc = None
+    meta = packed["convs"]
+    per, ps = packed["convs_per_rb"], packed["pair_size"]
+    for rb in range(packed["n_rb"]):
+        h = xc
+        for p0 in range(0, per, ps):
+            t = h
+            for j in range(p0, p0 + ps):
+                ci = rb * per + j
+                k, d, off = meta[ci]
+                kio = packed["w"][off:off + k * c * c].view(k, c, c)
+                t = _conv_f32(leaky_relu(t, LRELU_SLOPE), kio, packed["bias"][ci], d).to(dtype)
+            h = h + t
+        acc = h.float() if acc is None else acc + h.float()
+    out = (acc / packed["n_rb"]).to(dtype)
+    if post_pack is None:
+        return out.transpose(1, 2).contiguous()
+    wav = _conv_f32(leaky_relu(out, 0.01), post_pack["w"][:, :, None], post_pack["bias"], 1)
+    return torch.tanh(wav).transpose(1, 2).contiguous()
+
+
+def auto_tile(batch: int, seq: int, min_items: int = 128) -> int:
+    """Time tile: the largest of 256..32 that still gives ``min_items`` work items.
+
+    A larger tile recomputes less halo per output row, more items fill more
+    SMs (one resident block per SM at this kernel's register count). The
+    default of 128 items was tuned on the H100 (132 SMs): there the largest
+    tile with about one item per SM measured fastest at every V1 stage but
+    stage 0 at B=1, which takes the smallest. It does not read the card.
+    """
+    tile = 256
+    while tile > 32 and batch * -(-seq // tile) < min_items:
+        tile //= 2
+    return tile
+
+
+_KERNEL = None  # the ctypes entry of csrc/resblock_tail.cu, its signature set once
+
+
+def _kernel():
+    global _KERNEL
+    if _KERNEL is None:
+        from hifigan_tpu_torch.ops import _build
+
+        fn = _build.load("resblock_tail").hifigan_mrf_stage
+        vp = ctypes.c_void_p
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [vp] * 9 + [ctypes.c_int] * 12 + [vp]
+        _KERNEL = fn
+    return _KERNEL
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _check(x: torch.Tensor, packed: dict, post_pack: dict | None) -> None:
+    if x.dim() != 3 or x.shape[2] != packed["channels"]:
+        raise ValueError(f"x must be (B, T, {packed['channels']}), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    tensors = [packed["w"], packed["bias"]] + ([post_pack["w"], post_pack["bias"]]
+                                               if post_pack is not None else [])
+    for t in tensors:
+        if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+            raise ValueError("packed weights must be contiguous, on x's device, in x's dtype")
+    if post_pack is not None and tuple(post_pack["w"].shape) != (_POST_K, packed["channels"]):
+        raise ValueError(f"post_pack weights must be ({_POST_K}, {packed['channels']})")
+    if packed["desc"].device != x.device:
+        raise ValueError("packed descriptors must be on x's device")
+
+
+def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = None,
+                     tile: int | None = None) -> torch.Tensor:
+    """x (B, T, C) -> the stage's MRF output (B, T, C), or (B, T, 1) float32 with post_pack.
+
+    A CPU tensor takes :func:`fused_tail_stage_reference`; a CUDA tensor
+    launches the kernel (or raises).
+    """
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return fused_tail_stage_reference(x, packed, post_pack)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_tail_stage runs on cpu or cuda, got {x.device}")
+    _check(x, packed, post_pack)
+    fn = _kernel()
+    b, t, c = x.shape
+    tile = tile or auto_tile(b, t)
+    hp = (_POST_K - 1) // 2 if post_pack is not None else 0
+    halo = packed["halo"] + hp
+    n_items = b * -(-t // tile)
+    grid = min(n_items, 2 * _sm_count(x.device.index))
+    work = tile + 2 * halo
+    scratch = torch.empty(grid * 2 * work * c, dtype=x.dtype, device=x.device)
+    acc = torch.empty(grid * (tile + 2 * hp) * c, dtype=torch.float32, device=x.device)
+    if post_pack is not None:
+        y = torch.empty((b, t, 1), dtype=torch.float32, device=x.device)
+    else:
+        y = torch.empty_like(x)
+    max_k = max(k for k, _, _ in packed["convs"])
+    max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
+    with torch.cuda.device(x.device):
+        rc = fn(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), packed["w"].data_ptr(),
+            packed["bias"].data_ptr(), packed["desc"].data_ptr(),
+            post_pack["w"].data_ptr() if post_pack is not None else None,
+            post_pack["bias"].data_ptr() if post_pack is not None else None,
+            y.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
+            b, t, c, packed["n_rb"], packed["convs_per_rb"], packed["pair_size"], tile, halo, hp,
+            max_k, max_ext, grid, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_tail_stage kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return y
