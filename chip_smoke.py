@@ -19,7 +19,25 @@ into the git-ignored ``build/kernels``), then:
    prints ms per request and the real-time factor;
 4. runs ``python -m hifigan_tpu_torch.cli.infer --fast`` end to end on a
    synthetic sine wav with a torch ``g_*`` file and ``config.json``;
-5. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+5. holds the MSD conv-stack kernels (``fused_conv_stack``: forward, dx, dW
+   + db) against their plain versions at the three V1 MSD scales, full
+   width, conv_0's output as input, seeded ``MultiScaleDiscriminator``
+   weights, N=2 and N=16, fp32 (TF32 off) within FP32_TOL and bf16 within
+   BF16_REL_TOL of the plain tensor's peak: every layer's output, and dx,
+   dW, db for a loss on every feature map, on the logits only, and with
+   ``weight_grads=False``; prints per-pass times of kernel, plain version
+   and the cuDNN conv chain, and the bound;
+6. trains V1 at full size (B=16, 8192 samples, seeded weights, seeded
+   synthetic audio) for TRAIN_STEPS steps of ``make_train_step`` with the
+   counts set to 0 just before and read just after (and per step): checks
+   finite metrics, that every parameter group and scale 0's spectral ``u``
+   move, the per-step launches against the count derived from the step's
+   structure, and step 1's metrics against the same step with
+   ``msd_conv_impl='xla'`` within TRAIN_REL_TOL; prints ms per step and the
+   conv-stack kernels' ms per step;
+7. runs ``python -m hifigan_tpu_torch.cli.train`` on synthetic wavs for
+   two steps that write ``g_*``/``do_*``, then again, resuming from them;
+8. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Any failed check raises: the script then exits non-zero and prints no ok
@@ -58,6 +76,15 @@ BF16_REL_TOL = 2.0 ** -4
 SERVE_REL_TOL = 2.0 ** -4
 BATCHES = (1, 4, 16)
 H100_BF16_FLOPS, H100_FP32_FLOPS, H100_BYTES_PER_S = 989e12, 67e12, 3.35e12
+STACK_BATCHES = (2, 16)
+SEGMENT = 8192
+TRAIN_STEPS = 5
+# Step 1's five metrics, fused conv stack against per-layer cuDNN convs from
+# the same state and batch (TF32 off): the forward differs by float order
+# (~1e-6 relative), and the D update's AdamW step moves each weight by about
+# lr * sign(g), so a gradient that is float noise around zero may step the
+# other way in one of them; that moves the G losses by far less than 1e-3.
+TRAIN_REL_TOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -108,6 +135,288 @@ def stage_cost(packed: dict, batch: int, seq: int, esize: int, post: bool) -> tu
     return ops, batch * seq * c * esize + wbytes + out_bytes
 
 
+def synthetic_audio(batch: int, length: int, sr: int, seed: int) -> np.ndarray:
+    """Seeded sine mixtures plus noise, peak 0.95: (batch, length) float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length) / sr
+    out = np.zeros((batch, length))
+    for b in range(batch):
+        for _ in range(4):
+            out[b] += rng.uniform(0.1, 0.5) * np.sin(2 * np.pi * rng.uniform(80, 4000) * t
+                                                      + rng.uniform(0, 2 * np.pi))
+        out[b] += 0.02 * rng.standard_normal(length)
+    return (0.95 * out / np.abs(out).max(axis=1, keepdims=True)).astype(np.float32)
+
+
+def stack_of(d, dtype):
+    """One MSD scale's layers 1-6 + conv_post as (specs, kernels, fp32 biases)."""
+    from hifigan_tpu_torch.ops import conv_stack as cs
+
+    specs = [cs.LayerSpec(ch, k, s, g, p, p, 0.1) for ch, k, s, g, p in d.specs[1:]]
+    specs.append(cs.LayerSpec(1, 3, 1, 1, 1, 1, 1.0))
+    layers = [c.kernel_nwc(False, dtype) for c in [*d.convs[1:], d.conv_post]]
+    return (specs, [k.detach().contiguous() for k, _ in layers],
+            [b.detach().float().contiguous() for _, b in layers])
+
+
+def stack_cost(specs, x: torch.Tensor) -> tuple[int, int, int, int]:
+    """(FLOP of one pass, fwd bytes, dx bytes, dW bytes) over input x: each
+    pass's inputs read once and outputs written once; dx and dW do the
+    forward's multiply-adds again."""
+    from hifigan_tpu_torch.ops.conv_stack import out_len
+
+    n, t, c = x.shape
+    esize = x.element_size()
+    flop, act, wts = 0, 0, 0
+    for sp in specs:
+        t_out = out_len(t, sp)
+        flop += 2 * n * t_out * sp.c_out * sp.kernel * (c // sp.groups)
+        act += n * t_out * sp.c_out * esize
+        wts += sp.kernel * (c // sp.groups) * sp.c_out * esize + sp.c_out * 4
+        t, c = t_out, sp.c_out
+    x_bytes = x.numel() * esize
+    # fwd: x, W, b -> ys; dx: dys, ys, W -> dx; dW: x, ys, dys -> dW, db
+    return flop, x_bytes + wts + act, 2 * act + wts + x_bytes, x_bytes + 2 * act + wts
+
+
+def cudnn_chain(xc: torch.Tensor, specs, ws, bs):
+    """The stack conv by conv in cuDNN, (N, C, T) layout: a yardstick only."""
+    h, outs = xc, []
+    for sp, w, b in zip(specs, ws, bs):
+        h = F.conv1d(h, w, b, stride=sp.stride, padding=sp.pad_l, groups=sp.groups)
+        if sp.slope != 1.0:
+            h = F.leaky_relu(h, sp.slope)
+        outs.append(h)
+    return outs
+
+
+def stack_phase(msd, dev) -> dict:
+    """Phase 5: the conv-stack kernels against their plain versions."""
+    from hifigan_tpu_torch.ops import conv_stack as cs
+    from hifigan_tpu_torch.ops.conv import avg_pool1d, conv1d, leaky_relu
+
+    wav = torch.from_numpy(synthetic_audio(max(STACK_BATCHES), SEGMENT, 22050, SEED + 2)).to(dev)
+    errs = {torch.float32: {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0},
+            torch.bfloat16: {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}}
+    per_scale = []  # fp32 N=16 timings and costs, one dict per scale
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_rel = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL
+        y = wav
+        for scale, d in enumerate(msd.discriminators):
+            if scale:
+                y = avg_pool1d(y[..., None], 4, 2, padding=2)[..., 0]
+            specs, ks, bs = stack_of(d, dtype)
+            for n in STACK_BATCHES:
+                with torch.no_grad():
+                    k0, b0 = d.convs[0].kernel_nwc(dtype=dtype)
+                    x0 = leaky_relu(conv1d(y[:n, :, None].to(dtype), k0, b0,
+                                           padding=d.convs[0].padding)).contiguous()
+                tag = f"scale {scale} T={x0.shape[1]} N={n} {str(dtype)[6:]}"
+
+                def held(what, got, want, kind):
+                    err = (got.float() - want.float()).abs().max().item()
+                    peak = want.float().abs().max().item()
+                    check(got.shape == want.shape and got.dtype == want.dtype,
+                          f"{tag} {what}: {tuple(got.shape)} {got.dtype}")
+                    check(bool(torch.isfinite(got).all()), f"{tag} {what}: non-finite")
+                    check(err <= tol_rel * peak, f"{tag} {what}: error {err} > {tol_rel} * {peak}")
+                    errs[dtype][kind] = max(errs[dtype][kind], err)
+                    return err, peak
+
+                x = x0.clone().requires_grad_()
+                kk = [k.clone().requires_grad_() for k in ks]
+                bk = [b.clone().requires_grad_() for b in bs]
+                ys = cs.fused_conv_stack(x, kk, bk, specs)
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    plain = cs.fused_conv_stack_reference(x0, ks, bs, specs)
+                    lib = cudnn_chain(x0.transpose(1, 2).contiguous(), specs,
+                                      [k.permute(2, 1, 0) for k in ks], [b.to(dtype) for b in bs])
+                fwd_err = max(held(f"y{l}", yk, yp, "fwd")[0] for l, (yk, yp) in
+                              enumerate(zip(ys, plain)))
+                lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                              for a, b in zip(lib, plain))
+                dys = [(torch.randn(yk.shape, device=dev, generator=gen) * 0.01).to(dtype)
+                       for yk in ys]
+                saved = [yk.detach() for yk in ys]
+                for case, live, wg in (("every fmap", range(len(ys)), True),
+                                       ("logits only", [len(ys) - 1], True),
+                                       ("weight_grads=False", range(len(ys)), False)):
+                    cot = [dys[l] if l in live else None for l in range(len(ys))]
+                    ys_c = ys if wg else cs.fused_conv_stack(x, kk, bk, specs, weight_grads=False)
+                    outs = [ys_c[l] for l in live]
+                    got = torch.autograd.grad(outs, [x, *kk, *bk], [cot[l] for l in live],
+                                              retain_graph=True)
+                    torch.cuda.synchronize()
+                    dx, dks, dbs = cs.fused_conv_stack_backward_reference(
+                        x0, ks, saved, cot, specs, weight_grads=wg)
+                    held(f"{case} dx", got[0], dx, "bwd_dx")
+                    if wg:
+                        for l, (gk, gb) in enumerate(zip(got[1:1 + len(ks)], got[1 + len(ks):])):
+                            if dks[l] is not None:
+                                held(f"{case} dW{l}", gk, dks[l], "bwd_dw")
+                                held(f"{case} db{l}", gb, dbs[l], "bwd_dw")
+                    else:
+                        check(all(not g.any() for g in got[1:]),
+                              f"{tag}: weight_grads=False gave dW != 0")
+                print(f"conv stack {tag}: fwd max_abs_err {fwd_err:.3e} "
+                      f"(cudnn chain {lib_err:.3e}); "
+                      f"dx/dW/db held for every fmap, logits only, weight_grads=False")
+                if n == max(STACK_BATCHES):
+                    per_scale.append(time_stack(cs, x0, ks, bs, specs, dys, dtype, scale))
+                del x, kk, bk, ys, saved, dys
+    return {"errs": errs, "per_scale": per_scale}
+
+
+def time_stack(cs, x0, ks, bs, specs, dys, dtype, scale) -> dict:
+    """CUDA-event times of one pass of kernel, plain version and cuDNN chain
+    (mean of 10 after a warm-up: 3 moved the kernel's time by up to 32%
+    between two runs on one card)."""
+    reps = 10
+    x = x0.clone().requires_grad_()
+    kk = [k.clone().requires_grad_() for k in ks]
+    bk = [b.clone().requires_grad_() for b in bs]
+    with torch.no_grad():
+        k_fwd = time_ms(lambda: cs.fused_conv_stack(x0, ks, bs, specs), reps)
+        p_fwd = time_ms(lambda: cs.fused_conv_stack_reference(x0, ks, bs, specs), reps)
+    ys = cs.fused_conv_stack(x, kk, bk, specs)
+    k_bwd = time_ms(lambda: torch.autograd.grad(ys, [x, *kk, *bk], dys, retain_graph=True), reps)
+    ys_dx = cs.fused_conv_stack(x, ks, bs, specs)
+    k_dx = time_ms(lambda: torch.autograd.grad(ys_dx, [x], dys, retain_graph=True), reps)
+    saved = [y.detach() for y in ys]
+    p_bwd = time_ms(lambda: cs.fused_conv_stack_backward_reference(x0, ks, saved, dys, specs), reps)
+    p_dx = time_ms(lambda: cs.fused_conv_stack_backward_reference(
+        x0, ks, saved, dys, specs, weight_grads=False), reps)
+    xc = x0.transpose(1, 2).contiguous().requires_grad_()
+    ws = [k.permute(2, 1, 0).contiguous().requires_grad_() for k in ks]
+    lb = [b.to(dtype).requires_grad_() for b in bs]
+    dys_c = [d.transpose(1, 2).contiguous() for d in dys]
+    with torch.no_grad():
+        l_fwd = time_ms(lambda: cudnn_chain(xc, specs, ws, lb), reps)
+    outs = cudnn_chain(xc, specs, ws, lb)
+    l_bwd = time_ms(lambda: torch.autograd.grad(outs, [xc, *ws, *lb], dys_c, retain_graph=True),
+                    reps)
+    outs_dx = cudnn_chain(xc, specs, [w.detach() for w in ws], [b.detach() for b in lb])
+    l_dx = time_ms(lambda: torch.autograd.grad(outs_dx, [xc], dys_c, retain_graph=True), reps)
+    flop, b_fwd, b_dx, b_dw = stack_cost(specs, x0)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    row = {"scale": scale, "T": x0.shape[1], "flop": flop, "bytes": {"fwd": b_fwd, "bwd_dx": b_dx,
+                                                                      "bwd_dw": b_dw},
+           "ms": {"fwd": k_fwd, "bwd_dx": k_dx, "bwd_dw": k_bwd - k_dx},
+           "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx, "bwd_dw": p_bwd - p_dx},
+           "library_ms": {"fwd": l_fwd, "bwd_dx": l_dx, "bwd_dw": l_bwd - l_dx}}
+    for kind in ("fwd", "bwd_dx", "bwd_dw"):
+        bound = max(flop / peak, row["bytes"][kind] / H100_BYTES_PER_S) * 1e3
+        row.setdefault("bound_ms", {})[kind] = bound
+        print(f"conv stack scale {scale} T={x0.shape[1]} N={x0.shape[0]} {str(dtype)[6:]} {kind}: "
+              f"kernel {row['ms'][kind]:.3f} ms plain {row['plain_ms'][kind]:.3f} ms "
+              f"cudnn {row['library_ms'][kind]:.3f} ms bound {row['bound_ms'][kind]:.4f} ms "
+              f"({flop / 1e9:.1f} GFLOP, {row['bytes'][kind] / 1e6:.1f} MB; "
+              f"{flop / max(row['ms'][kind], 1e-6) / 1e9:.2f} TFLOP/s)")
+    row["dtype"] = str(dtype)[6:]
+    return row
+
+
+# Passes of each conv-stack entry point in one V1 train step, per MSD scale:
+# the D update runs real and fake forward and backward with weight grads;
+# the G update runs both forward again and only the fake one backward, for
+# dx alone (the real one gets no gradient, the weights are frozen).
+PASSES_PER_STEP = {"fwd": 4, "bwd_dx": 3, "bwd_dw": 2}
+
+
+def train_phase(h, dev) -> dict:
+    """Phase 6: V1 train steps at full size through ``make_train_step``."""
+    from hifigan_tpu_torch.config import AttrDict
+    from hifigan_tpu_torch.ops import conv_stack as cs
+    from hifigan_tpu_torch.train.vocoder import create_train_state, make_train_step
+
+    n_scales = 3
+    layers = 7  # MSD layers 1-6 + conv_post, one launch each per pass
+    per_step = {k: v * n_scales * layers for k, v in PASSES_PER_STEP.items()}
+    step_fn = make_train_step(h)
+    batches = [{"audio": synthetic_audio(h["batch_size"], h["segment_size"], h["sampling_rate"],
+                                         SEED + 10 + i)} for i in range(TRAIN_STEPS)]
+    state = create_train_state(h, seed=SEED, device=dev)
+    xla = create_train_state(AttrDict(h, msd_conv_impl="xla"), seed=SEED, device=dev)
+    for name in ("generator", "mpd", "msd"):
+        getattr(xla, name).load_state_dict(getattr(state, name).state_dict())
+    _, ref_metrics = step_fn(xla, batches[0])
+    ref_metrics = {k: v.item() for k, v in ref_metrics.items()}
+    del xla
+    torch.cuda.empty_cache()
+
+    before = {name: [p.detach().clone() for p in getattr(state, name).parameters()]
+              for name in ("generator", "mpd", "msd")}
+    u0 = {k: v.clone() for k, v in state.spectral_msd.items() if v.numel() > 1}
+    step_ms, launches_per_step, history = [], [], []
+    cs.reset_launches()
+    for i, batch in enumerate(batches):
+        counts = cs.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches_per_step.append({k: v - counts[k] for k, v in cs.launches().items()})
+        history.append({k: v.item() for k, v in metrics.items()})
+    launches = cs.launches()
+    for i, (m, n) in enumerate(zip(history, launches_per_step)):
+        check(all(np.isfinite(v) for v in m.values()), f"step {i + 1}: non-finite metrics {m}")
+        check(n == per_step, f"step {i + 1}: conv-stack launches {n}, derived {per_step}")
+    for name, params in before.items():
+        after = getattr(state, name).parameters()
+        moved = sum(not torch.equal(a, b) for a, b in zip(params, after))
+        check(moved == len(params), f"{name}: {len(params) - moved} parameters did not move")
+    check(any(not torch.equal(u, state.spectral_msd[k]) for k, u in u0.items()),
+          "scale 0's spectral u did not move")
+    rel = {k: abs(history[0][k] - v) / abs(v) for k, v in ref_metrics.items()}
+    print(f"train step 1, fused conv stack: {json.dumps(history[0])}")
+    print(f"train step 1, msd_conv_impl='xla': {json.dumps(ref_metrics)}")
+    print(f"train step 1 relative difference: {json.dumps(rel)} (limit {TRAIN_REL_TOL})")
+    check(max(rel.values()) <= TRAIN_REL_TOL, f"step 1 fused vs xla: {rel}")
+    ms = float(np.median(step_ms[2:]))
+    print(f"train V1 B={h['batch_size']}x{h['segment_size']} fp32 (TF32 off): step ms "
+          f"{[round(t, 3) for t in step_ms]}, median of steps 3-{TRAIN_STEPS}: {ms:.3f} ms; "
+          f"conv-stack launches per step {per_step}; metrics step {TRAIN_STEPS}: "
+          f"{json.dumps(history[-1])}")
+    return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel}
+
+
+def cli_train_phase(h) -> None:
+    """Phase 7: ``python -m hifigan_tpu_torch.cli.train`` writes and resumes g_*/do_*."""
+    from hifigan_tpu_torch.audio import save_wav
+    from hifigan_tpu_torch.cli import train as cli_train
+    from hifigan_tpu_torch.train.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "wavs").mkdir()
+        sr = h["sampling_rate"]
+        audio = synthetic_audio(5, sr, sr, SEED + 20)
+        for i, wav in enumerate(audio):
+            save_wav(str(tmp / "wavs" / f"utt{i}.wav"), wav, sr)
+        (tmp / "train.txt").write_text("".join(f"utt{i}|text\n" for i in range(4)))
+        (tmp / "valid.txt").write_text("utt4|text\n")
+        (tmp / "config.json").write_text(json.dumps(dict(h, batch_size=2)))
+        argv = ["--config", str(tmp / "config.json"), "--checkpoint_path", str(tmp / "ckpt"),
+                "--input_wavs_dir", str(tmp / "wavs"), "--input_training_file",
+                str(tmp / "train.txt"), "--input_validation_file", str(tmp / "valid.txt"),
+                "--training_epochs", "1", "--checkpoint_interval", "2",
+                "--validation_interval", "2", "--stdout_interval", "1"]
+        first = cli_train.main(argv)
+        check(first.step == 2, f"cli train ran {first.step} steps, expected 2")
+        for name in ("g_00000002", "do_00000002"):
+            check((tmp / "ckpt" / name).exists(), f"cli train did not write {name}")
+        do = load_checkpoint(str(tmp / "ckpt" / "do_00000002"))
+        check(do["steps"] == 2 and set(do) == {"mpd", "msd", "optim_g", "optim_d", "steps",
+                                               "epoch"}, f"do_ file keys {sorted(do)}")
+        second = cli_train.main(argv)  # resumes at step 2, re-runs epoch 0
+        check(second.step == 4 and (tmp / "ckpt" / "do_00000004").exists(),
+              f"cli train resume ended at step {second.step}")
+        print("cli train wrote g_00000002/do_00000002 and resumed to step 4")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -119,7 +428,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from hifigan_tpu_torch.cli import infer
     from hifigan_tpu_torch.config import get_config
-    from hifigan_tpu_torch.models import Generator, fold_weight_norm
+    from hifigan_tpu_torch.models import Generator, MultiScaleDiscriminator, fold_weight_norm
     from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
     from hifigan_tpu_torch.ops import _build
     from hifigan_tpu_torch.ops import conv as ops
@@ -287,6 +596,20 @@ def main() -> int:
         check(bool(np.isfinite(data).all()) and float(np.abs(data).max()) > 0, "cli wav silent")
         print(f"cli --fast wrote {os.path.basename(written[0])}: {data.shape[1]} samples @ {out_sr} Hz")
 
+    # 5. the conv-stack kernels against their plain versions, every V1 MSD scale
+    torch.cuda.empty_cache()
+    msd = MultiScaleDiscriminator(generator=torch.Generator().manual_seed(SEED)).to(dev)
+    stack = stack_phase(msd, dev)
+    del msd
+    torch.cuda.empty_cache()
+
+    # 6. V1 train steps through the port's main training path
+    train = train_phase(h, dev)
+    torch.cuda.empty_cache()
+
+    # 7. the training CLI end to end
+    cli_train_phase(h)
+
     bound_ms = max(request["ops"] / H100_BF16_FLOPS, request["bytes"] / H100_BYTES_PER_S) * 1e3
     kernels = [{
         "name": "fused_tail_stage",
@@ -309,6 +632,34 @@ def main() -> int:
                 "256-frame request, 4 stage calls, bf16 (max_abs_err: fp32)"),
         "serve_ms": serve,
     }]
+    rows = [r for r in stack["per_scale"] if r["dtype"] == "float32"]
+    stack_ms = 0.0
+    for kind, line in (("fwd", 374), ("bwd_dx", 596), ("bwd_dw", 596)):
+        n = PASSES_PER_STEP[kind]
+        ops_ms = sum(n * r["flop"] for r in rows) / H100_FP32_FLOPS * 1e3
+        bytes_ms = sum(n * r["bytes"][kind] for r in rows) / H100_BYTES_PER_S * 1e3
+        entry = {
+            "name": f"fused_conv_stack.{kind}",
+            "route": "cuda",
+            "source": "hifigan_tpu_torch/csrc/conv_stack.cu",
+            "replaces": f"hifigan_tpu/ops/pallas/conv_stack.py:{line}",
+            "launches": train["launches"][kind],
+            "launches_per_step": train["per_step"][kind],
+            "max_abs_err": stack["errs"][torch.float32][kind],
+            "max_abs_err_bf16": stack["errs"][torch.bfloat16][kind],
+        }
+        for key in ("ms", "plain_ms", "library_ms"):
+            entry[key] = sum(n * r[key][kind] for r in rows)
+        entry["bound_ms"] = max(ops_ms, bytes_ms)
+        entry["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        entry["per"] = (f"launches: the main path's run of {TRAIN_STEPS} V1 train steps; times and "
+                        f"bound: one V1 train step (B=16, 8192 samples, fp32, {n} passes per MSD "
+                        "scale), from CUDA-event times of one pass at each scale; max_abs_err: "
+                        "over the three scales at N=2 and N=16 (function :973)")
+        stack_ms += entry["ms"]
+        kernels.append(entry)
+    print(f"train step {train['step_ms']:.3f} ms, of which the conv-stack kernels "
+          f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times)")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,11 +4,12 @@ Mirrors the JAX package's layout so each module's counterpart is easy to
 find; the JAX package stays the reference the port is tested against.
 
 - ``hifigan_tpu_torch.audio``  — wav I/O, STFT, log-mel pipeline
-- ``hifigan_tpu_torch.models`` — Generator V1/V2/V3, normed conv layers,
-  the low-latency fused-stage vocoder
+- ``hifigan_tpu_torch.data``   — the vocoder training dataset
+- ``hifigan_tpu_torch.models`` — Generator V1/V2/V3, MPD/MSD discriminators,
+  losses, normed conv layers, the low-latency fused-stage vocoder
 - ``hifigan_tpu_torch.ops``    — conv primitives and the CUDA kernels
-- ``hifigan_tpu_torch.train``  — generator checkpoint I/O
-- ``hifigan_tpu_torch.cli``    — inference CLIs
+- ``hifigan_tpu_torch.train``  — the GAN trainer, ``g_*``/``do_*`` checkpoints
+- ``hifigan_tpu_torch.cli``    — inference and training CLIs
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

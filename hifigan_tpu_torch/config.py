@@ -1,6 +1,6 @@
 """Config carrier + loading (PyTorch port of ``hifigan_tpu/config.py``).
 
-``AttrDict`` mirrors the reference's ``env.py``; the V1/V2/V3 hyperparameter
+``AttrDict`` and ``build_env`` mirror the reference's ``env.py``; the V1/V2/V3 hyperparameter
 sets equal the shared ``configs/config_v*.json`` files (checked by the tests),
 and a ``config.json`` beside a checkpoint is read with :func:`load_config`.
 """
@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 from typing import Any
 
 
@@ -34,6 +36,14 @@ def upsample_hop(h) -> int:
 def load_config(path: str) -> AttrDict:
     with open(path, "r", encoding="utf-8") as f:
         return AttrDict(json.load(f))
+
+
+def build_env(config: str, config_name: str, path: str) -> None:
+    """Copy the config file beside the checkpoints (the reference's ``env.py``)."""
+    t_path = os.path.join(path, config_name)
+    if config != t_path:
+        os.makedirs(path, exist_ok=True)
+        shutil.copyfile(config, t_path)
 
 
 _COMMON = dict(

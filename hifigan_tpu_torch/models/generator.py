@@ -10,7 +10,9 @@ The boundary is (B, num_mels, T) -> (B, 1, T * hop) float32. Parameter names
 are the reference state_dict's (``conv_pre.weight_g``, ``ups.0.weight_v``,
 ``resblocks.N.convs1.M.bias``), so a reference ``g_*`` generator loads with
 ``load_state_dict`` directly; ``folded=True`` takes plain ``weight`` entries
-(:func:`hifigan_tpu_torch.models.layers.fold_weight_norm`).
+(:func:`hifigan_tpu_torch.models.layers.fold_weight_norm`). ``dtype`` is the
+compute dtype (the JAX ``Generator.dtype``): the mel is cast to it and every
+conv casts its kernel and bias to it; the waveform comes out float32.
 """
 
 from __future__ import annotations
@@ -66,8 +68,10 @@ class Generator(nn.Module):
     """mel (B, num_mels, T) -> waveform (B, 1, T * prod(upsample_rates))."""
 
     def __init__(self, h: Any, folded: bool = False,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None) -> None:
         super().__init__()
+        self.dtype = dtype
         norm = "none" if folded else "weight"
         self.num_kernels = len(h["resblock_kernel_sizes"])
         ch0 = h["upsample_initial_channel"]
@@ -87,7 +91,7 @@ class Generator(nn.Module):
                                     generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv_pre(x.to(self.conv_pre.bias.dtype))
+        x = self.conv_pre(x.to(self.dtype or self.conv_pre.bias.dtype))
         nk = self.num_kernels
         for i, up in enumerate(self.ups):
             x = up(leaky_relu(x, LRELU_SLOPE))

@@ -1,14 +1,28 @@
-"""Normed 1-D convolution modules (PyTorch port of ``hifigan_tpu/models/layers.py``).
+"""Normed convolution modules (PyTorch port of ``hifigan_tpu/models/layers.py``).
 
 Weights are held in torch's own layouts, so a module's state_dict keys and
-shapes are the reference checkpoint's: Conv1d (O, I, K), ConvTranspose1d
-(I, O, K). ``norm='weight'`` keeps ``weight_g``/``weight_v`` as the module's
-own parameters (w = g * v / ||v||, norm over every dim but 0, torch
-``weight_norm(dim=0)``); ``norm='none'`` keeps a plain ``weight``.
+shapes are the reference checkpoint's: Conv1d (O, I/groups, K), Conv2d
+(O, I/groups, KH, KW), ConvTranspose1d (I, O, K).
+
+- ``norm='weight'`` keeps ``weight_g``/``weight_v`` as the module's own
+  parameters (w = g * v / ||v||, norm over every dim but 0, torch
+  ``weight_norm(dim=0)``);
+- ``norm='spectral'`` keeps the parameter ``weight_orig`` and the buffers
+  ``weight_u`` (the power-iteration vector, (O,)) and ``weight_v``, the
+  names torch's ``spectral_norm`` gives them. With ``update_spectral`` a call
+  runs one power iteration, ``v = l2n(Wᵀu)``, ``u' = l2n(W v)``, with
+  ``l2n(x) = x / (||x|| + 1e-12)``, stores u' and v, and divides W by
+  ``σ = u'·W v``; gradients flow through W only. Written out by hand:
+  torch's ``spectral_norm`` normalises with ``max(||x||, eps)``;
+- ``norm='none'`` keeps a plain ``weight``.
 
 Init is torch's: kaiming-uniform ``v`` (bound 1/sqrt(fan_in)), ``g = ||v||``,
-uniform bias; draws come from the caller's ``torch.Generator``. Activations
-are (N, C, W), torch's layout.
+uniform bias, a normal ``u``; draws come from the caller's
+``torch.Generator``. ``NormConv1d.forward`` takes torch's (N, C, W) layout;
+``NormConv1d.kernel_nwc`` gives the kernel in the JAX layout and
+``NormConv2d.nhwc`` runs on channels-last (N, H, W, C). Every conv casts
+its input, kernel and bias to the input's dtype (or to ``dtype`` where
+given), as the JAX modules' ``_cast`` does.
 """
 
 from __future__ import annotations
@@ -19,9 +33,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hifigan_tpu_torch.ops.conv import conv2d
+
 
 def _uniform(shape, bound: float, generator: torch.Generator | None) -> torch.Tensor:
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+def _l2n(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x) + eps)
 
 
 class _NormConvBase(nn.Module):
@@ -30,8 +50,14 @@ class _NormConvBase(nn.Module):
         bound = 1.0 / math.sqrt(fan_in)
         v = _uniform(shape, bound, generator)
         if norm == "weight":
-            self.weight_g = nn.Parameter(torch.sqrt((v * v).sum(dim=(1, 2), keepdim=True)))
+            dims = tuple(range(1, v.dim()))
+            self.weight_g = nn.Parameter(torch.sqrt((v * v).sum(dim=dims, keepdim=True)))
             self.weight_v = nn.Parameter(v)
+        elif norm == "spectral":
+            self.weight_orig = nn.Parameter(v)
+            u = _l2n(torch.randn((shape[0],), generator=generator))
+            self.register_buffer("weight_u", u)
+            self.register_buffer("weight_v", _l2n(v.reshape(shape[0], -1).t() @ u))
         elif norm == "none":
             self.weight = nn.Parameter(v)
         else:
@@ -39,27 +65,69 @@ class _NormConvBase(nn.Module):
         self.bias = nn.Parameter(_uniform((n_bias,), bound, generator))
         self.norm = norm
 
-    def effective_weight(self) -> torch.Tensor:
+    def effective_weight(self, update_spectral: bool = False) -> torch.Tensor:
+        """The conv weight after its norm, in torch layout."""
         if self.norm == "none":
             return self.weight
-        v = self.weight_v
-        return v * (self.weight_g / torch.sqrt((v * v).sum(dim=(1, 2), keepdim=True)))
+        if self.norm == "weight":
+            v = self.weight_v
+            dims = tuple(range(1, v.dim()))
+            return v * (self.weight_g / torch.sqrt((v * v).sum(dim=dims, keepdim=True)))
+        w = self.weight_orig
+        w_mat = w.reshape(w.shape[0], -1)
+        with torch.no_grad():
+            v = _l2n(w_mat.t() @ self.weight_u)
+            u = _l2n(w_mat @ v)
+            if update_spectral:
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        return w / torch.dot(u, w_mat @ v)
 
 
 class NormConv1d(_NormConvBase):
-    """Conv1d over (N, C, W) with torch integer padding semantics."""
+    """Conv1d with torch integer padding semantics."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,
                  norm: str = "weight", generator: torch.Generator | None = None) -> None:
         super().__init__()
-        self.stride, self.padding, self.dilation = stride, padding, dilation
-        self._init_params((out_channels, in_channels, kernel_size), out_channels,
-                          in_channels * kernel_size, norm, generator)
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+        self._init_params((out_channels, in_channels // groups, kernel_size), out_channels,
+                          (in_channels // groups) * kernel_size, norm, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.effective_weight(), self.bias, stride=self.stride,
-                        padding=self.padding, dilation=self.dilation)
+        """(N, C, W) -> (N, O, W')."""
+        return F.conv1d(x, self.effective_weight().to(x.dtype), self.bias.to(x.dtype),
+                        stride=self.stride, padding=self.padding, dilation=self.dilation,
+                        groups=self.groups)
+
+    def kernel_nwc(self, update_spectral: bool = False,
+                   dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+        """(kernel (K, I/groups, O), bias) in ``dtype``: the JAX layout."""
+        w = self.effective_weight(update_spectral).permute(2, 1, 0)
+        return w.to(dtype), self.bias.to(dtype)
+
+
+class NormConv2d(_NormConvBase):
+    """Conv2d with torch integer padding semantics (port of the JAX NormConv2d)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
+                 groups: int = 1, norm: str = "weight",
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride, self.padding, self.groups = tuple(stride), tuple(padding), groups
+        self._init_params((out_channels, in_channels // groups, kh, kw), out_channels,
+                          (in_channels // groups) * kh * kw, norm, generator)
+
+    def nhwc(self, x: torch.Tensor, update_spectral: bool = False,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(N, H, W, C) -> (N, H', W', O) in ``dtype`` (default: x's)."""
+        dtype = dtype or x.dtype
+        w = self.effective_weight(update_spectral).permute(2, 3, 1, 0).to(dtype)
+        return conv2d(x.to(dtype), w, self.bias.to(dtype), stride=self.stride,
+                      padding=self.padding, groups=self.groups)
 
 
 class NormConvTranspose1d(_NormConvBase):
@@ -74,7 +142,7 @@ class NormConvTranspose1d(_NormConvBase):
                           out_channels * kernel_size, norm, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.effective_weight(), self.bias,
+        return F.conv_transpose1d(x, self.effective_weight().to(x.dtype), self.bias.to(x.dtype),
                                   stride=self.stride, padding=self.padding)
 
 

@@ -5,6 +5,7 @@ Layouts (as in ``hifigan_tpu/ops/conv.py``):
 - 1D kernels: (K, I, O) for forward convs.
 - transposed 1D kernels: (K, I, O) with I the transposed conv's *input*
   feature count (torch ConvTranspose1d stores (I, O, K)).
+- 2D activations: (N, H, W, C); 2D kernels: (KH, KW, I, O) (HWIO).
 
 Inside, the convs run as ``F.conv1d`` / ``F.conv_transpose1d`` on (N, C, W)
 views; the public functions keep the channels-last layout so the port and
@@ -73,3 +74,34 @@ def conv_transpose1d(
     y = F.conv_transpose1d(x.transpose(1, 2), kernel.permute(1, 2, 0), bias, stride=stride,
                            padding=padding, output_padding=output_padding)
     return y.transpose(1, 2)
+
+
+def conv2d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: torch.Tensor | None = None,
+    stride: tuple[int, int] = (1, 1),
+    padding: tuple[int, int] = (0, 0),
+    dilation: tuple[int, int] = (1, 1),
+    groups: int = 1,
+) -> torch.Tensor:
+    """(N, H, W, C_in) @ (KH, KW, C_in/groups, C_out) -> (N, H', W', C_out)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias, stride=stride,
+                 padding=padding, dilation=dilation, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool1d(x: torch.Tensor, kernel_size: int, stride: int, padding: int = 0,
+               count_include_pad: bool = True) -> torch.Tensor:
+    """torch.nn.AvgPool1d over (N, W, C)."""
+    y = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
+                     count_include_pad=count_include_pad)
+    return y.transpose(1, 2)
+
+
+def reflect_pad_1d(x: torch.Tensor, pad: tuple[int, int], axis: int = 1) -> torch.Tensor:
+    """Reflect padding along ``axis`` (torch F.pad mode='reflect')."""
+    moved = x.movedim(axis, -1)
+    shape = moved.shape
+    y = F.pad(moved.reshape(-1, 1, shape[-1]), tuple(pad), mode="reflect")
+    return y.reshape(*shape[:-1], y.shape[-1]).movedim(-1, axis)

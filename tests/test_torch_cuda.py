@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Imports no JAX, so it also runs where JAX is not installed::
 
@@ -13,6 +13,7 @@ import torch
 from hifigan_tpu_torch.config import AttrDict, get_config
 from hifigan_tpu_torch.models import Generator, fold_weight_norm
 from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
+from hifigan_tpu_torch.ops import conv_stack as tstack
 from hifigan_tpu_torch.ops import resblock_tail as ttail
 
 requires_cuda = pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA device")
@@ -90,3 +91,84 @@ def test_wrapper_rejects_bad_inputs():
         ttail.fused_tail_stage(x[:, ::2], packed)  # not contiguous
     with pytest.raises(ValueError):
         ttail.fused_tail_stage(x.bfloat16(), packed)  # weights in another dtype
+
+
+def _stack(specs, c0, seq, batch, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, seq, c0), device="cuda", generator=g) * 0.5
+    ks, bs, c = [], [], c0
+    for sp in specs:
+        fan = sp.kernel * (c // sp.groups)
+        ks.append(torch.randn((sp.kernel, c // sp.groups, sp.c_out), device="cuda",
+                              generator=g) * (1.5 / fan ** 0.5))
+        bs.append(torch.randn((sp.c_out,), device="cuda", generator=g) * 0.1)
+        c = sp.c_out
+    return x, ks, bs
+
+
+_L = tstack.LayerSpec
+STACKS = {
+    # MSD-shaped: strided grouped layers (odd lengths), a dense layer, conv_post
+    "msd": ([_L(64, 41, 2, 4, 20, 20, 0.1), _L(128, 41, 4, 16, 20, 20, 0.1),
+             _L(128, 5, 1, 1, 2, 2, 0.1), _L(1, 3, 1, 1, 1, 1, 1.0)], 64, 333),
+    # asymmetric padding, stride 3, wide groups
+    "odd": ([_L(96, 7, 3, 2, 4, 1, 0.2), _L(48, 3, 1, 3, 0, 2, 0.1)], 32, 101),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("name", sorted(STACKS))
+def test_conv_stack_kernels_match_plain_fp32(no_tf32, name):
+    specs, c0, seq = STACKS[name]
+    x, ks, bs = _stack(specs, c0, seq, 3, 0)
+    before = tstack.launches()
+    xk = x.clone().requires_grad_()
+    kk = [k.clone().requires_grad_() for k in ks]
+    bk = [b.clone().requires_grad_() for b in bs]
+    ys = tstack.fused_conv_stack(xk, kk, bk, specs)
+    torch.cuda.synchronize()
+    assert tstack.LAUNCHES_FWD == before["fwd"] + len(specs)
+    ref = tstack.fused_conv_stack_reference(x, ks, bs, specs)
+    for y, r in zip(ys, ref):
+        assert y.shape == r.shape and y.dtype == r.dtype
+        assert (y - r).abs().max().item() <= 1e-4 * max(r.abs().max().item(), 1.0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dys = [torch.randn(y.shape, device="cuda", generator=g) * 0.1 for y in ys]
+    dys[0] = None  # a dead cotangent
+    loss = sum((y * d).sum() for y, d in zip(ys, dys) if d is not None)
+    got = torch.autograd.grad(loss, [xk, *kk, *bk])
+    torch.cuda.synchronize()
+    assert tstack.LAUNCHES_BWD_DX == before["bwd_dx"] + len(specs)
+    assert tstack.LAUNCHES_BWD_DW == before["bwd_dw"] + len(specs)
+    dx, dks, dbs = tstack.fused_conv_stack_backward_reference(
+        x, ks, [y.detach() for y in ys], dys, specs)
+    for a, b in zip(got, [dx, *dks, *dbs]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@requires_cuda
+def test_conv_stack_skips_weight_and_input_grads(no_tf32):
+    specs, c0, seq = STACKS["msd"]
+    x, ks, bs = _stack(specs, c0, seq, 2, 2)
+    kk = [k.clone().requires_grad_() for k in ks]
+    before = tstack.launches()
+    ys = tstack.fused_conv_stack(x, kk, bs, specs, weight_grads=False)
+    grads = torch.autograd.grad(ys[-1].sum(), kk)
+    assert all(not g.any() for g in grads)
+    after = tstack.launches()
+    assert after["bwd_dw"] == before["bwd_dw"]
+    assert after["bwd_dx"] == before["bwd_dx"] + len(specs) - 1  # x needs no grad: no layer-0 dx
+
+
+@requires_cuda
+def test_conv_stack_wrapper_rejects_bad_inputs():
+    specs, c0, seq = STACKS["odd"]
+    x, ks, bs = _stack(specs, c0, seq, 1, 3)
+    with pytest.raises(TypeError):
+        tstack.fused_conv_stack(x.half(), ks, bs, specs)  # dtype
+    with pytest.raises(ValueError):
+        tstack.fused_conv_stack(x[:, ::2], ks, bs, specs)  # not contiguous
+    with pytest.raises(ValueError):
+        tstack.fused_conv_stack(x, [ks[0].cpu(), ks[1]], bs, specs)  # device
+    with pytest.raises(ValueError):
+        tstack.fused_conv_stack(x[:, :, :16].contiguous(), ks, bs, specs)  # channels

@@ -9,9 +9,12 @@ import pytest
 import torch
 
 from hifigan_tpu_torch.cli import infer
+from hifigan_tpu_torch.cli import train as cli_train
 from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
+from hifigan_tpu_torch.ops import conv_stack as tstack
 from hifigan_tpu_torch.ops import resblock_tail as ttail
-from tests.torch_port_helpers import folded_pair, small_config
+from hifigan_tpu_torch.train.vocoder import create_train_state
+from tests.torch_port_helpers import folded_pair, small_config, tiny_train_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hifigan_tpu")
@@ -39,7 +42,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """An AST scan: the environment may import jax at interpreter start-up,
     so sys.modules proves nothing."""
     files = list(_port_files())
-    assert len(files) > 15
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"hifigan_tpu_torch/ops/conv_stack.py", "hifigan_tpu_torch/models/discriminators.py",
+            "hifigan_tpu_torch/train/vocoder.py", "hifigan_tpu_torch/cli/train.py",
+            "hifigan_tpu_torch/data/meldataset.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -74,4 +80,36 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors(monkeypatch):
 def test_wrapper_has_no_fallback():
     """The CUDA branch launches or raises: no try/except in the wrapper."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(ttail.fused_tail_stage)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+def test_training_entry_points_without_device_raise_when_there_is_no_gpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    h = tiny_train_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(h)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--config", str(tmp_path / "config.json")])
+    assert create_train_state(h, device="cpu").device == torch.device("cpu")
+
+
+def test_conv_stack_takes_plain_version_only_for_cpu_tensors(monkeypatch):
+    specs = [tstack.LayerSpec(8, 3, 1, 1, 1, 1, 0.1)]
+    calls = []
+    monkeypatch.setattr(tstack, "fused_conv_stack_reference",
+                        lambda x, k, b, s, weight_grads=True: calls.append(x.device) or [x])
+    before = tstack.launches()
+    tstack.fused_conv_stack(torch.zeros(1, 16, 8), [torch.zeros(3, 8, 8)], [None], specs)
+    assert calls == [torch.device("cpu")] and tstack.launches() == before
+    with pytest.raises(ValueError):
+        tstack.fused_conv_stack(torch.zeros(1, 16, 8, device="meta"), [torch.zeros(3, 8, 8)],
+                                [None], specs)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("fn", [tstack.fused_conv_stack, tstack._FusedConvStack.forward,
+                                tstack._FusedConvStack.backward])
+def test_conv_stack_wrapper_has_no_fallback(fn):
+    """The CUDA branch launches or raises: no try/except around a launch."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))

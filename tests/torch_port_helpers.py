@@ -41,3 +41,17 @@ def folded_pair(h, seed: int = 0) -> tuple[dict, dict]:
     """(folded JAX params, the same weights as the port's folded state_dict)."""
     fp = jax.tree_util.tree_map(np.asarray, fold_weight_norm(jax_params(h, seed=seed)))
     return fp, generator_state_dict_from_jax(fp)
+
+
+def tiny_train_config() -> AttrDict:
+    """``tests/test_train.py``'s tiny vocoder config (2 stages, MPD periods
+    (2, 3), MSD width 16 over 2 scales, 256-sample segments)."""
+    from tests.test_train import tiny_config
+
+    return AttrDict(tiny_config())
+
+
+def numpy_state(module) -> dict:
+    """A module's state_dict as numpy copies (the JAX converters' input; a
+    copy, so later in-place updates of the module do not reach JAX)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
