@@ -37,7 +37,29 @@ into the git-ignored ``build/kernels``), then:
    conv-stack kernels' ms per step;
 7. runs ``python -m hifigan_tpu_torch.cli.train`` on synthetic wavs for
    two steps that write ``g_*``/``do_*``, then again, resuming from them;
-8. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+8. holds the stream-graph kernels (``fused_stream_graph``: forward, dx,
+   dW + db) against their plain versions at every segment of a production
+   all-in-one discriminator member (``configs/distill.json``, 3 members,
+   seeded weights, 12 elements of 43,680 samples), fp32 (TF32 off) within
+   FP32_TOL and bf16 within BF16_REL_TOL of the plain tensor's peak: every
+   produced level, and dx, dW, db with every input and weight differentiated,
+   with ``weight_grads=False``, and with the weights alone; prints per-segment
+   and per-pass times of kernel and plain version, the interpreter's cuDNN
+   conv chain over the whole discriminator, and the bound;
+9. runs DISTILL_STEPS distillation train steps of ``configs/distill.json``
+   at its shipped scale (B=3 x 43,680 samples, fp32, TF32 off, seeded
+   weights and synthetic audio, the label set of ``bench.py``) with the
+   gradient accumulation cut to 1 (in memory, printed), with the counts set
+   to 0 just before and read just after (and per step): checks finite
+   losses, that every parameter of the six optimizer groups and the live
+   discriminator's spectral power-iteration vector ``v`` move (its ``u``
+   has one entry, the before conv having one output channel, so it stays
+   +-1), the per-step launches against the
+   count derived from the step's structure, and step 1's loss tree against
+   the same step with ``member_impl='interpret'`` within DISTILL_REL_TOL;
+   prints ms per step and the stream-graph kernels' share of one profiled
+   step;
+10. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Any failed check raises: the script then exits non-zero and prints no ok
@@ -46,6 +68,7 @@ line. Without a CUDA device, or without the package beside it, it exits 2.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -85,6 +108,20 @@ TRAIN_STEPS = 5
 # lr * sign(g), so a gradient that is float noise around zero may step the
 # other way in one of them; that moves the G losses by far less than 1e-3.
 TRAIN_REL_TOL = 1e-3
+DISTILL_STEPS = 5
+# Step 1's loss tree, fused members against the interpreter from the same
+# state and batch (fp32, TF32 off): the forwards differ by float order only.
+DISTILL_REL_TOL = 1e-3
+SG_ELEMENTS = 12  # elements per member in phase 8: the generated-audio traversals' batch
+# bench.py's label set for the distillation step (copied: bench.py imports JAX)
+DISTILL_LABELS = {
+    "content": {"speaker": list(range(40)), "sex": list(range(3)),
+                "phones": list(range(72)), "sad": list(range(2))},
+    "style": {"mic-brand": list(range(5)), "noise": list(range(5)),
+              "rir": list(range(3)), "lowpass": list(range(2)),
+              "highpass": list(range(2)), "reverb": list(range(2)),
+              "hilbert": list(range(2)), "codec": list(range(5))},
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -417,6 +454,347 @@ def cli_train_phase(h) -> None:
         print("cli train wrote g_00000002/do_00000002 and resumed to step 4")
 
 
+def distill_models(config: dict, dev, member_impl: str = "auto"):
+    """The distillation models of ``config`` with uniform label weights."""
+    from hifigan_tpu_torch.distill.model import DistillModels
+
+    weights = {g: {k: {"true": tuple([1.0 / len(v)] * len(v)),
+                       "false": tuple([1.0 - 1.0 / len(v)] * len(v))}
+                   for k, v in group.items()} for g, group in DISTILL_LABELS.items()}
+    return DistillModels(config, DISTILL_LABELS, weights, sampling_rate=config["sampling_rate"],
+                         member_impl=member_impl, device=dev)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host time to issue one call (no synchronisation inside the loop): near
+    the CUDA-event time of the same calls, the wrapper's host side bounds it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued * 1e3 / reps
+
+
+def record_segments(disc, wav: torch.Tensor) -> list:
+    """One forward of ``disc``, recording every stream-graph call's arguments."""
+    from hifigan_tpu_torch.dsl import fused_member as fm
+
+    rec, real = [], fm.fused_stream_graph
+
+    def spy(seg, inputs, tables, biases, members=1, weight_grads=True):
+        rec.append((seg, [x.detach() for x in inputs], [t.detach().contiguous() for t in tables],
+                    [None if b is None else b.detach().float().contiguous() for b in biases],
+                    members))
+        return real(seg, inputs, tables, biases, members=members, weight_grads=weight_grads)
+
+    fm.fused_stream_graph = spy
+    try:
+        with torch.no_grad():
+            disc(wav)
+    finally:
+        fm.fused_stream_graph = real
+    return rec
+
+
+def segment_cost(seg, batch: int, members: int, esize: int, n_bias: int) -> dict:
+    """FLOP of one pass and the bytes each pass must move: every input read
+    once, every output written once (dx and dW repeat the forward's
+    multiply-adds)."""
+    flop = sum(2 * batch * seg.levels[op.out].t * e.kernel * e.c_in * seg.levels[op.out].c
+               for op in seg.ops for e in op.edges)
+    ins = sum(lvl.size for lvl in seg.levels if lvl.is_input) * batch * esize
+    outs = sum(lvl.size for lvl in seg.levels if not lvl.is_input) * batch * esize
+    w = sum(members * e.kernel * e.c_in * seg.levels[op.out].c
+            for op in seg.ops for e in op.edges) * esize + n_bias * 4
+    # fwd: x, W, b -> ys; dx: ys, dys, W -> dxs; dW: x, ys, dys -> dW, db
+    return {"flop": flop, "fwd": ins + w + outs, "bwd_dx": 2 * outs + w + ins,
+            "bwd_dw": ins + 2 * outs + w}
+
+
+def time_segment(sg, seg, ins, tabs, bs, m, dys) -> dict:
+    """CUDA-event times of one pass of kernel and plain version over a
+    segment (mean of 5 after a warm-up); the dx pass differentiates every
+    input and no weight, the dW pass every weight and no level."""
+    reps = 5
+    n_in, n_tab, n_ops = len(ins), len(tabs), len(seg.ops)
+    with torch.no_grad():
+        k_fwd = time_ms(lambda: sg.fused_stream_graph(seg, ins, tabs, bs, members=m), reps)
+        p_fwd = time_ms(lambda: sg.fused_stream_graph_reference(seg, ins, tabs, bs, m), reps)
+        ys = sg.fused_stream_graph(seg, ins, tabs, bs, members=m)
+        plan_dx = sg.backward_plan(seg, [True] * n_in, [False] * n_tab, [False] * n_ops,
+                                   [True] * len(ys))
+        full = sg.backward_plan(seg, [True] * n_in, [True] * n_tab,
+                                [b is not None for b in bs], [True] * len(ys))
+        plan_dw = [None if g is None else sg.OpGrad((), g.dw, g.db) for g in full]
+        k_dx = time_ms(lambda: sg._backward_cuda(seg, plan_dx, ins, ys, dys, tabs, m), reps)
+        k_dw = time_ms(lambda: sg._backward_cuda(seg, plan_dw, ins, ys, dys, tabs, m), reps)
+        host = {"fwd": host_ms(lambda: sg.fused_stream_graph(seg, ins, tabs, bs, members=m), reps),
+                "bwd_dx": host_ms(lambda: sg._backward_cuda(seg, plan_dx, ins, ys, dys, tabs, m),
+                                  reps),
+                "bwd_dw": host_ms(lambda: sg._backward_cuda(seg, plan_dw, ins, ys, dys, tabs, m),
+                                  reps)}
+        p_dx = time_ms(lambda: sg.fused_stream_graph_backward_reference(
+            seg, ins, ys, dys, tabs, m, plan=plan_dx), reps)
+        p_dw = time_ms(lambda: sg.fused_stream_graph_backward_reference(
+            seg, ins, ys, dys, tabs, m, plan=plan_dw), reps)
+    return {"ms": {"fwd": k_fwd, "bwd_dx": k_dx, "bwd_dw": k_dw},
+            "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx, "bwd_dw": p_dw}, "host_ms": host}
+
+
+def interp_times(disc_interp, wav: torch.Tensor) -> dict:
+    """The interpreter's per-conv cuDNN chain over the whole discriminator:
+    forward, dx (frozen weights) and dW (backward with weights minus dx)."""
+    reps = 3
+
+    def leaves(out):
+        return [out["output"]["mean"]["output"], *out["output"]["mean"]["features"],
+                *out["features"]]
+
+    with torch.no_grad():
+        fwd = time_ms(lambda: disc_interp(wav), reps)
+    x = wav.clone().requires_grad_()
+    disc_interp.requires_grad_(False)
+    outs = leaves(disc_interp(x))
+    cot = [torch.ones_like(o) for o in outs]
+    dx = time_ms(lambda: torch.autograd.grad(outs, [x], cot, retain_graph=True), reps)
+    disc_interp.requires_grad_(True)
+    params = list(disc_interp.parameters())
+    outs = leaves(disc_interp(wav))
+    full = time_ms(lambda: torch.autograd.grad(outs, params, cot, retain_graph=True), reps)
+    return {"fwd": fwd, "bwd_dx": dx, "bwd_dw": full - dx}
+
+
+def stream_graph_phase(models, dev) -> dict:
+    """Phase 8: the stream-graph kernels against their plain versions at
+    every segment of a production discriminator member."""
+    from hifigan_tpu_torch.ops import stream_graph as sg
+
+    seg_len = models.config["loops"]["train"]["segment_length"]
+    wav = torch.from_numpy(synthetic_audio(SG_ELEMENTS, seg_len, models.config["sampling_rate"],
+                                           SEED + 30)).to(dev)[:, :, None]
+    frozen = models.frozen_discriminator()
+    segs = record_segments(frozen, wav)
+    check(len(segs) == 10, f"a production member has 10 segments, recorded {len(segs)}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    errs = {dt: {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0} for dt in (torch.float32, torch.bfloat16)}
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_rel = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL
+        for si, (seg, ins, tabs, bs, m) in enumerate(segs):
+            tag = f"segment {si} ({len(seg.ops)} ops) {str(dtype)[6:]}"
+            ins_d = [x.to(dtype).contiguous() for x in ins]
+            tabs_d = [t.to(dtype).contiguous() for t in tabs]
+
+            def held(what, got, want, kind):
+                err = (got.float() - want.float()).abs().max().item()
+                peak = want.float().abs().max().item()
+                check(got.shape == want.shape and got.dtype == want.dtype,
+                      f"{tag} {what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+                      f"{want.dtype}")
+                check(bool(torch.isfinite(got).all()), f"{tag} {what}: non-finite")
+                check(err <= tol_rel * peak, f"{tag} {what}: error {err} > {tol_rel} * {peak}")
+                errs[dtype][kind] = max(errs[dtype][kind], err)
+
+            with torch.no_grad():
+                ys = sg.fused_stream_graph(seg, ins_d, tabs_d, bs, members=m)
+                torch.cuda.synchronize()
+                plain = sg.fused_stream_graph_reference(seg, ins_d, tabs_d, bs, m)
+            for li, (yk, yp) in enumerate(zip(ys, plain)):
+                held(f"level {li}", yk, yp, "fwd")
+            dys = [(torch.randn(y.shape, device=dev, generator=gen) * 0.01).to(dtype) for y in ys]
+            for case, need_x, wg in (("all", True, True), ("weight_grads=False", True, False),
+                                     ("weights only", False, True)):
+                xs = [x.clone().requires_grad_(need_x) for x in ins_d]
+                tt = [t.clone().requires_grad_() for t in tabs_d]
+                bb = [None if b is None else b.clone().requires_grad_() for b in bs]
+                outs = sg.fused_stream_graph(seg, xs, tt, bb, members=m, weight_grads=wg)
+                wrt = (xs if need_x else []) + tt + [b for b in bb if b is not None]
+                got = list(torch.autograd.grad(outs, wrt, dys))
+                torch.cuda.synchronize()
+                dxs, dws, dbs = sg.fused_stream_graph_backward_reference(
+                    seg, ins_d, [o.detach() for o in outs], dys, tabs_d, m,
+                    dx_mask=[need_x] * len(xs), dw_mask=[wg] * len(tt),
+                    db_mask=[wg and b is not None for b in bs])
+                if need_x:
+                    for i in range(len(xs)):
+                        held(f"{case} dx{i}", got.pop(0), dxs[i], "bwd_dx")
+                g_tab, g_bias = got[:len(tt)], got[len(tt):]
+                if wg:
+                    for i, (gk, rk) in enumerate(zip(g_tab, dws)):
+                        if rk is not None:
+                            held(f"{case} dW{i}", gk, rk, "bwd_dw")
+                    for gb, rb in zip(g_bias, [d for d, b in zip(dbs, bs) if b is not None]):
+                        held(f"{case} db", gb, rb, "bwd_dw")
+                else:
+                    check(all(not g.any() for g in got), f"{tag}: weight_grads=False gave dW != 0")
+            if dtype == torch.float32:
+                row = time_segment(sg, seg, ins_d, tabs_d, bs, m, dys)
+                row["cost"] = segment_cost(seg, ins_d[0].shape[0], m, 4,
+                                           sum(b.numel() for b in bs if b is not None))
+                rows.append(row)
+                c = row["cost"]
+                print(f"stream graph {tag} B={ins_d[0].shape[0]}: "
+                      + "; ".join(f"{k} kernel {row['ms'][k]:.3f} ms (host {row['host_ms'][k]:.3f}) "
+                                  f"plain {row['plain_ms'][k]:.3f} ms "
+                                  f"({c['flop'] / max(row['ms'][k], 1e-6) / 1e9:.2f} TFLOP/s)"
+                                  for k in ("fwd", "bwd_dx", "bwd_dw"))
+                      + f"; {c['flop'] / 1e9:.2f} GFLOP a pass, bound "
+                      + ", ".join(f"{k} {max(c['flop'] / H100_FP32_FLOPS, c[k] / H100_BYTES_PER_S) * 1e3:.4f} ms"
+                                  for k in ("fwd", "bwd_dx", "bwd_dw")))
+            print(f"stream graph {tag}: every level, and dx/dW/db for all, "
+                  f"weight_grads=False, weights only held")
+    del frozen
+    interp = copy.deepcopy(models.discriminator)
+    for mod in interp.modules():
+        if hasattr(mod, "member_impl"):
+            mod.member_impl, mod.update_spectral = "interpret", False
+    lib = interp_times(interp, wav)
+    del interp
+    print(f"stream graph, the whole discriminator at B={SG_ELEMENTS} x 3 members: kernels "
+          + ", ".join(f"{k} {sum(r['ms'][k] for r in rows):.3f} ms" for k in lib)
+          + "; the interpreter's cuDNN conv chain "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in lib.items()))
+    return {"errs": errs, "rows": rows, "library_ms": lib}
+
+
+# Per distill step, counted from the step's structure (distill/train.py): a
+# production member is 10 segments of 59 ops (5 per all-in-one block, 3 more
+# per mel branch (2 blocks), the before conv and head 0, the after conv).
+# Forward: 4 discriminator calls, one launch per op. dx: the frozen copy on
+# generated audio reaches every op (its inputs carry gradients); the two live
+# calls skip the before conv (its input, the audio, takes no gradient) and
+# the mel branches (constant tables, gradient-free input). dW: the live
+# calls, every op with a conv of its own (not the post-residual lrelu, not
+# the mel ops).
+def distill_launches_per_step(n_blocks: int, n_mel: int) -> dict:
+    ops = 5 * n_blocks + 2 + 1 + 3 * n_mel
+    live_dx = ops - 1 - 3 * n_mel
+    live_dw = ops - n_blocks - 3 * n_mel
+    return {"fwd": 4 * ops, "bwd_dx": ops + 2 * live_dx, "bwd_dw": 2 * live_dw}
+
+
+def flat_losses(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_losses(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: float(tree)}
+
+
+def distill_phase(config: dict, dev) -> dict:
+    """Phase 9: production distillation train steps through the port's main path."""
+    from hifigan_tpu_torch.distill.train import DistillTrainer
+    from hifigan_tpu_torch.ops import stream_graph as sg
+    from hifigan_tpu_torch.train.checkpoint import distill_state_dicts, load_distill_variables
+
+    cfg = copy.deepcopy(config)
+    cfg["learning"]["accumulated_grad_batches"] = 1
+    print("distill: configs/distill.json as shipped but accumulated_grad_batches 1 instead of "
+          f"100 (an in-memory copy), so each of the {DISTILL_STEPS} steps applies an update")
+    models = distill_models(cfg, dev)
+    trainer = DistillTrainer(models, cfg)
+    t0 = time.perf_counter()
+    state = trainer.create_state(seed=SEED)
+    print(f"distill models built (seeded, CPU) and moved in {time.perf_counter() - t0:.3f} s")
+    bsz, seg_len = trainer.batch_size, trainer.segment_length
+    t_emb = seg_len // models.embedding_size
+    rng = np.random.default_rng(SEED + 40)
+    batches = [{"audio": synthetic_audio(bsz, seg_len, cfg["sampling_rate"], SEED + 41 + i),
+                "time_labels": {g: {k: rng.integers(0, len(v), (bsz, t_emb))
+                                    for k, v in group.items()}
+                                for g, group in DISTILL_LABELS.items()}}
+               for i in range(DISTILL_STEPS + 1)]
+
+    interp = distill_models(cfg, dev, member_impl="interpret")
+    interp.build(seg_len, seed=SEED)
+    load_distill_variables(interp, distill_state_dicts(models))
+    trainer_i = DistillTrainer(interp, cfg)
+    _, ref = trainer_i.make_train_step()(trainer_i.create_state(build=False), batches[0])
+    ref = flat_losses(ref)
+    del interp, trainer_i
+    torch.cuda.empty_cache()
+
+    n_blocks = len(cfg["models"]["discriminator"]["layers"]) - 2
+    n_mel = sum(layer.startswith("all") for layer in cfg["models"]["discriminator"]["layers"][1:-1])
+    per_step = distill_launches_per_step(n_blocks, n_mel)
+    before = {g: [p.detach().clone() for p in opt.params] for g, opt in state.optimizers.items()}
+    # the spectral conv (the before conv, 1 -> 1 channel) keeps u (1,), which
+    # is +-1 by construction; its power-iteration state that moves is v
+    spec0 = {k: v.clone() for k, v in models.discriminator.named_buffers()
+             if k.endswith(("weight_u", "weight_v"))}
+    check(len(spec0) == 6, f"the live discriminator has {len(spec0)} spectral vectors, expected 6")
+    step = trainer.make_train_step()
+    step_ms, launches_per_step, history = [], [], []
+    sg.reset_launches()
+    for batch in batches[:DISTILL_STEPS]:
+        counts = sg.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches_per_step.append({k: v - counts[k] for k, v in sg.launches().items()})
+        history.append(flat_losses(losses))
+    launches = sg.launches()
+    for i, (h, n) in enumerate(zip(history, launches_per_step)):
+        check(all(np.isfinite(v) for v in h.values()), f"distill step {i + 1}: non-finite losses")
+        check(n == per_step, f"distill step {i + 1}: stream-graph launches {n}, derived {per_step}")
+    for g, params in before.items():
+        moved = sum(not torch.equal(a, b) for a, b in zip(params, state.optimizers[g].params))
+        check(moved == len(params), f"group {g}: {len(params) - moved} of {len(params)} "
+                                    "parameters did not move")
+    bufs = dict(models.discriminator.named_buffers())
+    for k, v in spec0.items():
+        check(bool(torch.isfinite(bufs[k]).all()) and abs(bufs[k].norm().item() - 1) < 1e-4,
+              f"{k} is not a unit vector")
+        check(k.endswith("weight_u") or not torch.equal(v, bufs[k]), f"{k} did not move")
+    print("live discriminator spectral state after the steps: u "
+          f"{[bufs[k].tolist() for k in spec0 if k.endswith('weight_u')]}, every v moved")
+    rel = {k: abs(history[0][k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+    worst = max(rel, key=rel.get)
+    print(f"distill step 1 total, fused members {history[0]['/total']:.6f}, interpreter "
+          f"{ref['/total']:.6f}; worst relative difference over {len(rel)} losses "
+          f"{rel[worst]:.3e} at {worst} (limit {DISTILL_REL_TOL})")
+    check(rel[worst] <= DISTILL_REL_TOL, f"distill step 1 fused vs interpret: {worst} {rel[worst]}")
+    ms = float(np.median(step_ms[2:]))
+    print(f"distill B={bsz}x{seg_len} fp32 (TF32 off): step ms {[round(t, 3) for t in step_ms]}, "
+          f"median of steps 3-{DISTILL_STEPS}: {ms:.3f} ms ({bsz * seg_len / cfg['sampling_rate'] / ms * 1e3:.2f}x "
+          f"real time); stream-graph launches per step {per_step}; total loss by step "
+          f"{[round(h['/total'], 4) for h in history]}")
+
+    # one more step under the profiler: the stream-graph kernels' share of device time
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batches[DISTILL_STEPS])
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in on_card)
+    sg_us = sum(e.time_range.elapsed_us() for e in on_card if "::sg_" in e.name)
+    share = {"step_device_ms": dev_us / 1e3, "sg_device_ms": sg_us / 1e3,
+             "idle_share": 1 - dev_us / 1e3 / ms, "device_events": len(on_card)}
+    if dev_us > 0:
+        print(f"profiled step: device busy {dev_us / 1e3:.3f} ms, of which the stream-graph "
+              f"kernels {sg_us / 1e3:.3f} ms ({100 * sg_us / dev_us:.1f}%); {len(on_card)} "
+              f"device events; idle {100 * share['idle_share']:.1f}% of the median step")
+        by_name: dict = {}
+        for e in on_card:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+            print(f"  device {us / 1e3:8.3f} ms {n:6d}x  {name[:110]}")
+    else:
+        print("profiled step: the profiler reported no device time (not measured)")
+    return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel[worst],
+            "share": share}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -438,7 +816,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     card = smi[0]
-    print(f"card: {card}")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
@@ -610,6 +988,18 @@ def main() -> int:
     # 7. the training CLI end to end
     cli_train_phase(h)
 
+    # 8. the stream-graph kernels against their plain versions, every segment of a member
+    distill_cfg = json.loads((REPO / "configs" / "distill.json").read_text())
+    models = distill_models(distill_cfg, dev)
+    models.build(distill_cfg["loops"]["train"]["segment_length"], seed=SEED)
+    graph = stream_graph_phase(models, dev)
+    del models
+    torch.cuda.empty_cache()
+
+    # 9. production distillation train steps through the port's main path
+    distill = distill_phase(distill_cfg, dev)
+    torch.cuda.empty_cache()
+
     bound_ms = max(request["ops"] / H100_BF16_FLOPS, request["bytes"] / H100_BYTES_PER_S) * 1e3
     kernels = [{
         "name": "fused_tail_stage",
@@ -658,6 +1048,36 @@ def main() -> int:
                         "over the three scales at N=2 and N=16 (function :973)")
         stack_ms += entry["ms"]
         kernels.append(entry)
+    sg_ms = 0.0
+    for kind, line in (("fwd", 388), ("bwd_dx", 600), ("bwd_dw", 600)):
+        rows = graph["rows"]
+        ops_ms = sum(r["cost"]["flop"] for r in rows) / H100_FP32_FLOPS * 1e3
+        bytes_ms = sum(r["cost"][kind] for r in rows) / H100_BYTES_PER_S * 1e3
+        entry = {
+            "name": f"fused_stream_graph.{kind}",
+            "route": "cuda",
+            "source": "hifigan_tpu_torch/csrc/stream_graph.cu",
+            "replaces": f"hifigan_tpu/ops/pallas/stream_graph.py:{line}",
+            "launches": distill["launches"][kind],
+            "launches_per_step": distill["per_step"][kind],
+            "max_abs_err": graph["errs"][torch.float32][kind],
+            "max_abs_err_bf16": graph["errs"][torch.bfloat16][kind],
+            "ms": sum(r["ms"][kind] for r in rows),
+            "plain_ms": sum(r["plain_ms"][kind] for r in rows),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": graph["library_ms"][kind],
+            "per": (f"launches: the main path's run of {DISTILL_STEPS} distill steps; times and "
+                    f"bound: one pass over the 10 segments of the 3-member discriminator at "
+                    f"{SG_ELEMENTS} elements x 43,680 samples, fp32 (library: the interpreter's "
+                    "cuDNN conv chain over the same discriminator); max_abs_err: every segment "
+                    "(function :786)"),
+        }
+        sg_ms += entry["ms"]
+        kernels.append(entry)
+    print(f"distill step {distill['step_ms']:.3f} ms; one {SG_ELEMENTS}-element discriminator "
+          f"traversal's stream-graph passes {sg_ms:.3f} ms; profiled step "
+          f"{json.dumps(distill['share'])}")
     print(f"train step {train['step_ms']:.3f} ms, of which the conv-stack kernels "
           f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times)")
     print(f"card: {card}")

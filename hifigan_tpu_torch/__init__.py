@@ -8,7 +8,10 @@ find; the JAX package stays the reference the port is tested against.
 - ``hifigan_tpu_torch.models`` — Generator V1/V2/V3, MPD/MSD discriminators,
   losses, normed conv layers, the low-latency fused-stage vocoder
 - ``hifigan_tpu_torch.ops``    — conv primitives and the CUDA kernels
-- ``hifigan_tpu_torch.train``  — the GAN trainer, ``g_*``/``do_*`` checkpoints
+- ``hifigan_tpu_torch.train``  — the GAN trainer, ``g_*``/``do_*`` checkpoints,
+  the distillation weight carrier
+- ``hifigan_tpu_torch.dsl``    — the model-builder DSL and its interpreter
+- ``hifigan_tpu_torch.distill`` — the speech-distillation models and train step
 - ``hifigan_tpu_torch.cli``    — inference and training CLIs
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

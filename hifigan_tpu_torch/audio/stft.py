@@ -8,6 +8,8 @@ the same numerics and is not carried over.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -17,6 +19,19 @@ def hann_window(win_size: int, dtype=np.float32) -> np.ndarray:
     n = np.arange(win_size, dtype=np.float64)
     w = 0.5 * (1.0 - np.cos(2.0 * np.pi * n / win_size))
     return w.astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rdft_basis(n_fft: int, win_size: int) -> np.ndarray:
+    """Real-DFT basis (win_size, 2 * (n_fft//2 + 1)): [cos | -sin] columns at the
+    window's centre-padded offsets, so frames @ basis = [Re | Im] of the
+    onesided DFT (the stream-graph mel branch's strided conv table)."""
+    n_bins = n_fft // 2 + 1
+    offset = (n_fft - win_size) // 2
+    t = np.arange(win_size, dtype=np.float64) + offset
+    k = np.arange(n_bins, dtype=np.float64)
+    phase = 2.0 * np.pi * np.outer(t, k) / n_fft
+    return np.concatenate([np.cos(phase), -np.sin(phase)], axis=1).astype(np.float32)
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:

@@ -17,8 +17,9 @@ shapes are the reference checkpoint's: Conv1d (O, I/groups, K), Conv2d
 - ``norm='none'`` keeps a plain ``weight``.
 
 Init is torch's: kaiming-uniform ``v`` (bound 1/sqrt(fan_in)), ``g = ||v||``,
-uniform bias, a normal ``u``; draws come from the caller's
-``torch.Generator``. ``NormConv1d.forward`` takes torch's (N, C, W) layout;
+uniform bias, a normal ``u``; ``norm='none'`` with ``init_std`` draws the
+weight from N(0, init_std) (the DSL's ``init_weights``, which only reaches
+un-normed convs); draws come from the caller's ``torch.Generator``. ``NormConv1d.forward`` takes torch's (N, C, W) layout;
 ``NormConv1d.kernel_nwc`` gives the kernel in the JAX layout and
 ``NormConv2d.nhwc`` runs on channels-last (N, H, W, C). Every conv casts
 its input, kernel and bias to the input's dtype (or to ``dtype`` where
@@ -46,9 +47,11 @@ def _l2n(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 class _NormConvBase(nn.Module):
     def _init_params(self, shape: tuple[int, ...], n_bias: int, fan_in: int, norm: str,
-                     generator: torch.Generator | None) -> None:
+                     generator: torch.Generator | None, init_std: float | None = None) -> None:
         bound = 1.0 / math.sqrt(fan_in)
         v = _uniform(shape, bound, generator)
+        if norm == "none" and init_std is not None:
+            v = torch.randn(shape, generator=generator) * init_std
         if norm == "weight":
             dims = tuple(range(1, v.dim()))
             self.weight_g = nn.Parameter(torch.sqrt((v * v).sum(dim=dims, keepdim=True)))
@@ -89,11 +92,12 @@ class NormConv1d(_NormConvBase):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,
-                 norm: str = "weight", generator: torch.Generator | None = None) -> None:
+                 norm: str = "weight", generator: torch.Generator | None = None,
+                 init_std: float | None = None) -> None:
         super().__init__()
         self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
         self._init_params((out_channels, in_channels // groups, kernel_size), out_channels,
-                          (in_channels // groups) * kernel_size, norm, generator)
+                          (in_channels // groups) * kernel_size, norm, generator, init_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, C, W) -> (N, O, W')."""
@@ -103,7 +107,8 @@ class NormConv1d(_NormConvBase):
 
     def kernel_nwc(self, update_spectral: bool = False,
                    dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
-        """(kernel (K, I/groups, O), bias) in ``dtype``: the JAX layout."""
+        """(kernel (K, I/groups, O), bias) in ``dtype``: the JAX layout. The
+        effective weights, as the JAX module's ``weights_only`` returns them."""
         w = self.effective_weight(update_spectral).permute(2, 1, 0)
         return w.to(dtype), self.bias.to(dtype)
 

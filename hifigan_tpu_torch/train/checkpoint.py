@@ -13,6 +13,14 @@
   JAX package: they turn its params pytrees (numpy arrays) into the port's
   state_dicts, with the key mapping of the JAX package's
   ``export_torch_generator`` / ``export_torch_discriminators``.
+- :func:`distill_variables_from_jax` carries the distillation models'
+  variables (``DistillTrainer.create_state(...).variables`` of the JAX
+  package: params, spectral ``u``, valves) into the port's DSL modules'
+  state_dicts, :func:`distill_variables_to_jax` back, and
+  :func:`load_distill_variables` loads them into a built ``DistillModels``.
+  The DSL modules keep the flax names, so this is a rename plus the layout
+  transposes; a homogeneous ensemble's stacked (axis 0) leaves become its
+  members'.
 
 Layout transposes (JAX -> torch): Conv1d (K, I, O) -> (O, I, K); Conv2d
 (KH, KW, I, O) -> (O, I, KH, KW); ConvTranspose1d (K, I, O) -> (I, O, K).
@@ -123,3 +131,128 @@ def discriminator_state_dict_from_jax(mpd_vars: dict, msd_vars: dict) -> dict[st
         return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
     return {"mpd": stack(mpd_vars), "msd": stack(msd_vars)}
+
+
+# ---------------------------------------------------------------------------
+# distillation models (DSL modules)
+# ---------------------------------------------------------------------------
+
+DISTILL_MODELS = ("encoder", "decoder", "discriminator", "keepers", "hunters", "sniffers")
+_GROUPED = ("keepers", "hunters", "sniffers")
+
+
+def dsl_state_dict_from_jax(variables: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """One JAX ``ConfigurableModule``'s variables -> the port module's state_dict (numpy)."""
+    params = variables.get("params", {})
+    spectral = variables.get("spectral", {})
+    valves = variables.get("valves", {})
+    out: dict[str, np.ndarray] = {}
+    for name, leaf in params.items():
+        if name.endswith("_ens"):
+            n = len(np.asarray(next(iter(next(iter(leaf.values())).values()))))
+            for i in range(n):
+                sub = {"params": {k: {a: np.asarray(v)[i] for a, v in conv.items()}
+                                  for k, conv in leaf.items()},
+                       "spectral": {k: {a: np.asarray(v)[i] for a, v in conv.items()}
+                                    for k, conv in spectral.get(name, {}).items()},
+                       "valves": valves.get(name, {})}
+                out.update(dsl_state_dict_from_jax(sub, f"{prefix}ensembles.{name}.{i}."))
+            continue
+        key = f"{prefix}convs.{name}"
+        u = spectral.get(name, {}).get("u")
+        if "v" in leaf:
+            out[f"{key}.weight_v"] = np.transpose(np.asarray(leaf["v"]), (2, 1, 0))
+            out[f"{key}.weight_g"] = np.asarray(leaf["g"]).reshape(-1, 1, 1)
+        elif u is not None:
+            w_t = np.transpose(np.asarray(leaf["kernel"]), (2, 1, 0))
+            u = np.asarray(u).reshape(-1)
+            out[f"{key}.weight_orig"] = w_t
+            out[f"{key}.weight_u"] = u
+            out[f"{key}.weight_v"] = _l2n(w_t.reshape(w_t.shape[0], -1).T @ u)
+        else:
+            out[f"{key}.weight"] = np.transpose(np.asarray(leaf["kernel"]), (2, 1, 0))
+        out[f"{key}.bias"] = np.asarray(leaf["bias"])
+    for name, val in valves.items():
+        if not isinstance(val, dict):
+            out[f"{prefix}valves.{name}"] = np.asarray(val)
+    return out
+
+
+def dsl_variables_to_jax(sd: dict) -> dict:
+    """A port ``ConfigurableModule``'s state_dict -> the JAX module's variables (numpy)."""
+    params: dict = {}
+    spectral: dict = {}
+    valves: dict = {}
+    members: dict = {}
+    for key, val in sd.items():
+        val = np.asarray(val.detach().cpu() if torch.is_tensor(val) else val)
+        if key.startswith("ensembles."):
+            _, name, i, rest = key.split(".", 3)
+            members.setdefault(name, {}).setdefault(int(i), {})[rest] = val
+        elif key.startswith("valves."):
+            valves[key[len("valves."):]] = val
+        elif key.startswith("convs."):
+            _, name, attr = key.split(".")
+            leaf = params.setdefault(name, {})
+            if attr == "weight_v" and f"convs.{name}.weight_g" in sd:
+                leaf["v"] = np.transpose(val, (2, 1, 0))
+            elif attr == "weight_g":
+                leaf["g"] = val.reshape(-1)
+            elif attr in ("weight_orig", "weight"):
+                leaf["kernel"] = np.transpose(val, (2, 1, 0))
+            elif attr == "weight_u":
+                spectral.setdefault(name, {})["u"] = val
+            elif attr == "bias":
+                leaf["bias"] = val
+    for name, subs in members.items():
+        trees = [dsl_variables_to_jax(subs[i]) for i in sorted(subs)]
+        params[name] = {k: {a: np.stack([t["params"][k][a] for t in trees])
+                            for a in conv} for k, conv in trees[0]["params"].items()}
+        if trees[0].get("spectral"):
+            spectral[name] = {k: {a: np.stack([t["spectral"][k][a] for t in trees])
+                                  for a in conv} for k, conv in trees[0]["spectral"].items()}
+        if trees[0].get("valves"):
+            valves[name] = trees[0]["valves"]
+    out = {"params": params}
+    if spectral:
+        out["spectral"] = spectral
+    if valves:
+        out["valves"] = valves
+    return out
+
+
+def distill_variables_from_jax(variables: dict) -> dict:
+    """JAX ``DistillTrainState.variables`` (numpy leaves) -> ``{model:
+    state_dict}`` (``{model: {key: state_dict}}`` for keepers, hunters,
+    sniffers) of the port's DSL modules."""
+
+    def conv(v):
+        return {k: torch.from_numpy(np.array(a, dtype=np.float32))
+                for k, a in dsl_state_dict_from_jax(v).items()}
+
+    return {m: ({k: conv(v) for k, v in variables[m].items()} if m in _GROUPED
+                else conv(variables[m])) for m in DISTILL_MODELS}
+
+
+def distill_variables_to_jax(state_dicts: dict) -> dict:
+    """Inverse of :func:`distill_variables_from_jax` (numpy leaves)."""
+    return {m: ({k: dsl_variables_to_jax(v) for k, v in state_dicts[m].items()} if m in _GROUPED
+                else dsl_variables_to_jax(state_dicts[m])) for m in DISTILL_MODELS}
+
+
+def load_distill_variables(models, state_dicts: dict) -> None:
+    """Load ``{model: state_dict}`` into a built ``DistillModels`` (strict)."""
+    mods = models.modules()
+    for m in DISTILL_MODELS:
+        if m in _GROUPED:
+            for k, sd in state_dicts[m].items():
+                mods[m][k].load_state_dict(sd)
+        else:
+            mods[m].load_state_dict(state_dicts[m])
+
+
+def distill_state_dicts(models) -> dict:
+    """The port's ``{model: state_dict}`` of a ``DistillModels``."""
+    mods = models.modules()
+    return {m: ({k: v.state_dict() for k, v in mods[m].items()} if m in _GROUPED
+                else mods[m].state_dict()) for m in DISTILL_MODELS}

@@ -172,3 +172,77 @@ def test_conv_stack_wrapper_rejects_bad_inputs():
         tstack.fused_conv_stack(x, [ks[0].cpu(), ks[1]], bs, specs)  # device
     with pytest.raises(ValueError):
         tstack.fused_conv_stack(x[:, :, :16].contiguous(), ks, bs, specs)  # channels
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _member_segments(elements: int = 3) -> list:
+    """The segments of a two-member all-in-one discriminator of the
+    production family (a roll: and an all: block), recorded on the CPU."""
+    from hifigan_tpu_torch.dsl import fused_member as fm
+    from hifigan_tpu_torch.dsl.module import ConfigurableModule
+    from hifigan_tpu_torch.dsl.parsing import parse_layers
+    from hifigan_tpu_torch.dsl.static_configs import get_discriminator_config
+
+    cfg = get_discriminator_config(parse_layers(
+        ["roll:1,9,1", "roll:1,5,2", "roll:2,5,2", "all:3,5,2", "roll:4,3,1"]), 1, 2)
+    disc = ConfigurableModule(cfg, mel_sampling_rate_override=16000)
+    disc.build(torch.zeros(1, 144, 1), generator=torch.Generator().manual_seed(0))
+    rec, real = [], fm.fused_stream_graph
+
+    def spy(seg, inputs, tables, biases, members=1, weight_grads=True):
+        rec.append((seg, inputs, tables, biases, members))
+        return real(seg, inputs, tables, biases, members=members, weight_grads=weight_grads)
+
+    fm.fused_stream_graph = spy
+    try:
+        with torch.no_grad():
+            disc(torch.randn(elements, 144, 1, generator=torch.Generator().manual_seed(1)))
+    finally:
+        fm.fused_stream_graph = real
+    return rec
+
+
+def test_stream_graph_kernels_match_plain_fp32(card, no_tf32):
+    from hifigan_tpu_torch.ops import stream_graph as sg
+
+    gen = torch.Generator().manual_seed(2)
+    for seg, ins, tabs, bs, m in _member_segments():
+        ins = [x.to(card) for x in ins]
+        tabs = [t.to(card) for t in tabs]
+        bs = [None if b is None else b.to(card) for b in bs]
+        before = sg.launches()["fwd"]
+        ys = sg.fused_stream_graph(seg, ins, tabs, bs, members=m)
+        assert sg.launches()["fwd"] - before == len(seg.ops)
+        for a, b in zip(ys, sg.fused_stream_graph_reference(seg, ins, tabs, bs, m)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        dys = [torch.randn(y.shape, generator=gen).to(card) for y in ys]
+        xs = [x.clone().requires_grad_() for x in ins]
+        tt = [t.clone().requires_grad_() for t in tabs]
+        bb = [None if b is None else b.clone().requires_grad_() for b in bs]
+        outs = sg.fused_stream_graph(seg, xs, tt, bb, members=m)
+        got = torch.autograd.grad(outs, xs + tt + [b for b in bb if b is not None], dys)
+        dxs, dws, dbs = sg.fused_stream_graph_backward_reference(
+            seg, ins, [o.detach() for o in outs], dys, tabs, m)
+        want = list(dxs) + list(dws) + [d for d, b in zip(dbs, bs) if b is not None]
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_stream_graph_wrapper_rejects_bad_inputs(card):
+    from hifigan_tpu_torch.ops import stream_graph as sg
+
+    seg = sg.Segment(levels=(sg.Level(8, 1, True), sg.Level(8, 2)),
+                     ops=(sg.Op(1, (sg.Edge(0, 1, 3, 1, 1, 1),), "lrelu", 0.1),))
+    x = torch.zeros(2, 8, 1, device=card)
+    with pytest.raises(ValueError):
+        sg.fused_stream_graph(seg, [x], [torch.zeros(1, 3, 1, 3, device=card)], [None])
+    with pytest.raises(TypeError):
+        sg.fused_stream_graph(seg, [x.half()], [torch.zeros(1, 3, 1, 2, device=card)], [None])
+    with pytest.raises(ValueError):
+        sg.fused_stream_graph(seg, [x], [torch.zeros(1, 3, 1, 2)], [None])

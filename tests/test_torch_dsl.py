@@ -1,0 +1,175 @@
+"""The port's DSL interpreter (``hifigan_tpu_torch.dsl.module``) against the
+JAX package's, node by node and for the distillation's generated models, on
+the CPU with the same weights (carried from JAX)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _tiny_distill_config
+from hifigan_tpu.distill.model import DistillModels as JaxDistillModels
+from hifigan_tpu.dsl import static_configs as jstatic
+from hifigan_tpu.dsl.parsing import parse_layers as jparse
+from hifigan_tpu_torch.dsl import static_configs as tstatic
+from hifigan_tpu_torch.dsl.module import ConfigurableModule, sorted_dicts
+from hifigan_tpu_torch.dsl.parsing import parse_layers
+from tests.torch_port_helpers import dsl_pair, leaves, run_cheap
+
+ATOL = 2e-5
+CONV = ("conv", (3, 3, 3))
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+NODES = {
+    "conv": (("conv", (3, 5, 3, 1, 1, 1, 0.01)), (2, 16, 3)),
+    "conv strided dilated spectral": (("conv", (3, 4, 3, 2, 2, 1, 0.01, "spectral")), (2, 17, 3)),
+    "conv grouped norm none": (("conv", (4, 4, 3, 1, 1, 2, 0.5, "none")), (2, 16, 4)),
+    "conv_rech": (("conv_rech", (3, 5, 3, None, 1, 1, 0.01)), (2, 20, 3)),
+    "conv_shuffle g1": (("conv_shuffle", (4, 4, 3, 1, 1, 1, 0.01)), (2, 16, 4)),
+    "conv_shuffle g2": (("conv_shuffle", (4, 4, 3, 1, 1, 2, 0.01)), (2, 16, 4)),
+    "lrelu": ([CONV, ("lrelu", 0.2)], (2, 16, 3)),
+    "tanh sigmoid": ([("tanh",), ("sigmoid",)], (2, 16, 3)),
+    "avg_ch": (("avg_ch",), (2, 16, 3)),
+    "softmax": (("softmax",), (2, 16, 3)),
+    "res": (("res", [CONV, ("lrelu", 0.1)]), (2, 16, 3)),
+    "sub_res pool": (("sub_res", ("pool", (5, 1))), (2, 16, 3)),
+    "pool": (("pool", (4, 2)), (2, 16, 3)),
+    "poold": (("poold", (5, 1, 2)), (2, 16, 3)),
+    "roll": (("roll", (5,)), (2, 16, 2)),
+    "roll reflect": (("roll", (3, "reflect")), (2, 16, 2)),
+    "unroll": (("unroll", 2), (2, 16, 4)),
+    "repl": (("repl", 3), (2, 16, 2)),
+    "shuffle unshuffle": ([("shuffle", 2), CONV[:1] + ((4, 4, 1),), ("unshuffle", 2)], (2, 8, 4)),
+    "up nearest": (("up", (2, "nearest")), (2, 8, 3)),
+    "sum": (("sum", [[CONV], ("repl", 1)]), (2, 16, 3)),
+    "fusion": (("fusion", [[CONV], ("tanh",)]), (2, 16, 3)),
+    "split int": (("split", 1), (2, 8, 3)),
+    "split dict recursive": ([("split", {"b": 1, "a": 2}),
+                              ("recursive", {"b": ("tanh",), "a": ("softmax",)})], (2, 8, 3)),
+    "split merge_dict": ([("split", {"b": 1, "a": 2}), ("merge_dict",)], (2, 8, 3)),
+    "chunk list": ([("chunk", 3), ("list", [("tanh",), ("sigmoid",), ("conv", (1, 2, 3))])],
+                   (2, 8, 3)),
+    "dict": ([("split", {"a": 1, "b": 2}), ("dict", {"a": ("tanh",), "b": ("conv", (2, 2, 3))})],
+             (2, 8, 3)),
+    "valve": ([("valve", 0.5, ["skip"]), CONV], (2, 8, 3)),
+    "mel": (("mel", (16000, 8, 16, 4)), (2, 62, 1)),
+    "ensemble homogeneous": (("ensemble", [[CONV, ("lrelu", 0.1)]] * 3), (2, 16, 3)),
+    "ensemble split in members": (("ensemble", [[CONV, ("split", {"b": 1, "a": 2})]] * 2),
+                                  (2, 8, 3)),
+    "ensemble heterogeneous": (("ensemble", [[CONV], [("conv", (3, 3, 5))]]), (2, 16, 3)),
+    "fmap": (("fmap", ([("conv", (3, 3, 3), ["t"]), ("tanh",), ("lrelu", 0.1, ["t"])], ["t"])),
+             (2, 16, 3)),
+    "pfmap interpreted": (("pfmap", ([("conv", (3, 3, 3), ["t"]), ("tanh", ["t"])], ["t"],
+                                     [[("conv", (3, 1, 3))]])), (2, 16, 3)),
+    "encoder decoder": ([("encoder", ([("conv", (3, 4, 3))], [("conv", (4, 2, 3)), ("tanh",)])),
+                         ("decoder", ([("conv", (2, 4, 3)), ("conv", (4, 4, 3))],
+                                      [("conv", (4, 3, 3))]))], (2, 16, 3)),
+}
+
+
+@pytest.mark.parametrize("name", list(NODES))
+def test_node_matches_jax(name):
+    cfg, shape = NODES[name]
+    x = _x(shape)
+    jm, variables, tm = dsl_pair(cfg, x, torch_kw={"mel_sampling_rate_override": None})
+    want = run_cheap(lambda v, xx: jm.apply(v, xx), variables, jnp.asarray(x))
+    got = tm(torch.from_numpy(x))
+    w, g = jax.tree_util.tree_leaves(want), leaves(got)
+    assert len(w) == len(g) > 0
+    for a, b in zip(w, g):
+        np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), atol=ATOL, rtol=1e-5,
+                                   err_msg=name)
+
+
+def test_one_hot_and_noise_nodes():
+    labels = np.array([[0, 2, 1, 3]], np.float32)
+    tm = ConfigurableModule(("one_hot", (4, 1))).build(torch.from_numpy(labels))
+    jm, variables, _ = dsl_pair(("one_hot", (4, 1)), labels)
+    np.testing.assert_array_equal(tm(torch.from_numpy(labels)).numpy(),
+                                  np.asarray(jm.apply(variables, jnp.asarray(labels))))
+    noise = ConfigurableModule(("noise", 5)).build(torch.zeros(1, 8, 2))
+    a = noise(torch.zeros(2, 8, 2), generator=torch.Generator().manual_seed(3))
+    b = noise(torch.zeros(2, 8, 2), generator=torch.Generator().manual_seed(3))
+    assert a.shape == (2, 8, 5) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cfg", [("conv2", (1, 2, 3)), ("trans", (2, 2, 4, 2)),
+                                 ("trans_shuffle", (2, 2, 4, 2)), ("trans2", (1, 2, 3)),
+                                 ("up", (2, "linear"))])
+def test_unported_nodes_raise(cfg):
+    with pytest.raises(NotImplementedError, match=cfg[0]):
+        ConfigurableModule(cfg).build(torch.zeros(1, 8, 2))
+
+
+@pytest.mark.parametrize("impl", [{"stream_impl": "fused"}, {"conv_impl": "pallas"}])
+def test_impls_that_wait_raise(impl):
+    with pytest.raises(NotImplementedError):
+        ConfigurableModule(("tanh",), **impl)
+
+
+def test_ensemble_members_see_sorted_dicts():
+    cfg = ("ensemble", [[("split", {"b": 1, "a": 2})]] * 2)
+    tm = ConfigurableModule(cfg).build(torch.zeros(1, 4, 3))
+    member = tm.ensembles["m_ens"][0]
+    assert member.config == sorted_dicts(tm.config[2][0])
+    out = tm(torch.arange(3.0).reshape(1, 1, 3))["mean"]
+    assert out["a"].tolist() == [[[0.0, 1.0]]] and out["b"].tolist() == [[[2.0]]]
+
+
+def test_static_configs_are_the_jax_ones():
+    cfg, labels, _ = _tiny_distill_config(3)
+    for key in ("generator", "discriminator"):
+        layers = cfg["models"][key]["layers"]
+        assert parse_layers(layers) == jparse(layers)
+    gl = parse_layers(cfg["models"]["generator"]["layers"])
+    assert tstatic.get_generator_configs(gl, 2, 6) == jstatic.get_generator_configs(gl, 2, 6)
+    dl = parse_layers(cfg["models"]["discriminator"]["layers"])
+    assert tstatic.get_discriminator_config(dl, 1, 2) == jstatic.get_discriminator_config(dl, 1, 2)
+    sl = parse_layers(cfg["models"]["sniffers"]["layers"])
+    assert (tstatic.generate_sniffers_configs_by_example(labels, sl, 2)
+            == jstatic.generate_sniffers_configs_by_example(labels, sl, 2))
+
+
+@pytest.fixture(scope="module")
+def tiny_models():
+    cfg, labels, weights = _tiny_distill_config(3)
+    return JaxDistillModels(cfg, labels, weights, sampling_rate=cfg["sampling_rate"],
+                            member_impl="interpret")
+
+
+@pytest.mark.parametrize("model", ["encoder", "decoder", "keepers", "hunters", "sniffers"])
+def test_tiny_distill_models_match_jax(tiny_models, model):
+    """The generated encoder/decoder and the classifier ensembles of the
+    tiny production-schema config, weights carried from JAX."""
+    m = tiny_models
+    seg = 24
+    half = m.embedding_channels // 2
+    emb_t = seg // m.embedding_size
+    if model == "encoder":
+        mods = {"": (m.encoder.config, _x((2, seg, 1)))}
+    elif model == "decoder":
+        mods = {"": (m.decoder.config, None)}
+    else:
+        group = getattr(m, model)
+        mods = {k: (mod.config, _x((2, emb_t, half), i)) for i, (k, mod) in enumerate(group.items())}
+    for key, (cfg, x) in mods.items():
+        if model == "decoder":  # its input: the encoder's {content, style} of a waveform
+            xe = _x((2, seg, 1))
+            je, ve, _ = dsl_pair(m.encoder.config, xe)
+            x = jax.tree_util.tree_map(np.asarray, run_cheap(je.apply, ve, jnp.asarray(xe)))
+        elif model == "sniffers":  # its input: a keeper's {label: probabilities}
+            x = {g: np.abs(_x((2, emb_t, len(v)), 7)) for g, v in m.example_labels[key].items()}
+        jm, variables, tm = dsl_pair(cfg, x)
+        want = run_cheap(lambda v, xx: jm.apply(v, xx), variables,
+                         jax.tree_util.tree_map(jnp.asarray, x))
+        got = tm(jax.tree_util.tree_map(torch.from_numpy, x))
+        w, g = jax.tree_util.tree_leaves(want), leaves(got)
+        assert len(w) == len(g) > 0
+        for a, b in zip(w, g):
+            np.testing.assert_allclose(b.detach().numpy(), np.asarray(a), atol=ATOL, rtol=1e-5,
+                                       err_msg=f"{model} {key}")

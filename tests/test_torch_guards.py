@@ -13,6 +13,7 @@ from hifigan_tpu_torch.cli import train as cli_train
 from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
 from hifigan_tpu_torch.ops import conv_stack as tstack
 from hifigan_tpu_torch.ops import resblock_tail as ttail
+from hifigan_tpu_torch.ops import stream_graph as tsg
 from hifigan_tpu_torch.train.vocoder import create_train_state
 from tests.torch_port_helpers import folded_pair, small_config, tiny_train_config
 
@@ -45,7 +46,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     rel = {os.path.relpath(f, REPO) for f in files}
     assert {"hifigan_tpu_torch/ops/conv_stack.py", "hifigan_tpu_torch/models/discriminators.py",
             "hifigan_tpu_torch/train/vocoder.py", "hifigan_tpu_torch/cli/train.py",
-            "hifigan_tpu_torch/data/meldataset.py"} <= rel
+            "hifigan_tpu_torch/data/meldataset.py", "hifigan_tpu_torch/ops/stream_graph.py",
+            "hifigan_tpu_torch/dsl/module.py", "hifigan_tpu_torch/dsl/fused_member.py",
+            "hifigan_tpu_torch/dsl/static_configs.py", "hifigan_tpu_torch/distill/train.py",
+            "hifigan_tpu_torch/distill/model.py", "hifigan_tpu_torch/distill/losses.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -113,3 +117,55 @@ def test_conv_stack_wrapper_has_no_fallback(fn):
     """The CUDA branch launches or raises: no try/except around a launch."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+def _tiny_segment():
+    seg = tsg.Segment(levels=(tsg.Level(8, 1, True), tsg.Level(8, 2)),
+                      ops=(tsg.Op(1, (tsg.Edge(0, 1, 3, 1, 1, 1),), "lrelu", 0.1),))
+    return seg, [torch.zeros(3, 1, 2)], [None]
+
+
+def test_stream_graph_takes_plain_version_only_for_cpu_tensors(monkeypatch):
+    seg, tables, biases = _tiny_segment()
+    calls = []
+    monkeypatch.setattr(tsg, "fused_stream_graph_reference",
+                        lambda seg, x, t, b, members=1, weight_grads=True:
+                        calls.append(x[0].device) or [x[0]])
+    before = tsg.launches()
+    tsg.fused_stream_graph(seg, [torch.zeros(1, 8, 1)], tables, biases)
+    assert calls == [torch.device("cpu")] and tsg.launches() == before
+    with pytest.raises(ValueError):
+        tsg.fused_stream_graph(seg, [torch.zeros(1, 8, 1, device="meta")], tables, biases)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("fn", [tsg.fused_stream_graph, tsg._StreamGraph.forward,
+                                tsg._StreamGraph.backward, tsg._forward_cuda,
+                                tsg._backward_cuda])
+def test_stream_graph_wrapper_has_no_fallback(fn):
+    """The CUDA branch launches or raises: no try/except around a launch."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+def test_stream_graph_rejects_what_the_kernels_do_not_take():
+    bad = tsg.Segment(levels=(tsg.Level(8, 1, True), tsg.Level(8, 2)),
+                      ops=(tsg.Op(1, (tsg.Edge(0, 1, 3, 2, 2, 1),)),))
+    with pytest.raises(ValueError, match="stride and dilation"):
+        tsg.check_segment(bad)
+    order = tsg.Segment(levels=(tsg.Level(8, 1, True), tsg.Level(8, 2), tsg.Level(8, 2)),
+                        ops=(tsg.Op(2, (tsg.Edge(0, 1, 3, 1, 1, 1),)),
+                             tsg.Op(1, (tsg.Edge(0, 1, 3, 1, 1, 1),))))
+    with pytest.raises(ValueError, match="level order"):
+        tsg.check_segment(order)
+
+
+def test_distill_entry_points_without_device_raise_when_there_is_no_gpu(monkeypatch):
+    from __graft_entry__ import _tiny_distill_config
+    from hifigan_tpu_torch.distill.model import DistillModels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, labels, weights = _tiny_distill_config(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistillModels(cfg, labels, weights)
+    assert DistillModels(cfg, labels, weights, device="cpu").device == torch.device("cpu")

@@ -55,3 +55,45 @@ def numpy_state(module) -> dict:
     """A module's state_dict as numpy copies (the JAX converters' input; a
     copy, so later in-place updates of the module do not reach JAX)."""
     return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
+
+
+CHEAP_CODEGEN = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def run_cheap(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled with the backend's cheap codegen: the
+    same HLO, about half the one-core compile time."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=CHEAP_CODEGEN)(*args)
+
+
+def dsl_pair(cfg, example: np.ndarray, seed: int = 0, jax_kw=None, torch_kw=None):
+    """A JAX ``ConfigurableModule`` initialised on ``example`` (an array or a
+    dict of arrays) and the port's
+    module of the same config carrying its variables: (jax module, numpy
+    variables, port module)."""
+    import torch
+
+    from hifigan_tpu.dsl.module import ConfigurableModule as JaxModule
+    from hifigan_tpu_torch.dsl.module import ConfigurableModule
+    from hifigan_tpu_torch.train.checkpoint import dsl_state_dict_from_jax
+
+    jm = JaxModule(config=cfg, **(jax_kw or {}))
+    variables = run_cheap(lambda key, x: jm.init({"params": key, "noise": key}, x, mutable=[
+        "params", "spectral", "valves"]), jax.random.PRNGKey(seed),
+                          jax.tree_util.tree_map(jnp.asarray, example))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    tm = ConfigurableModule(cfg, **(torch_kw or {}))
+    tm.build(jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a[:1])), example),
+             generator=torch.Generator().manual_seed(0))
+    tm.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32))
+                        for k, v in dsl_state_dict_from_jax(variables).items()})
+    return jm, variables, tm
+
+
+def leaves(tree) -> list:
+    """Leaves in JAX's pytree order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
