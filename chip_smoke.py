@@ -27,7 +27,9 @@ into the git-ignored ``build/kernels``), then:
    dW, db for a loss on every feature map, on the logits only, and with
    ``weight_grads=False``; prints per-pass times of kernel, plain version
    and the cuDNN conv chain, and the bound;
-6. trains V1 at full size (B=16, 8192 samples, seeded weights, seeded
+6. holds the port's average pool (the MSD's waveform pool, a DSL pool)
+   against the CPU, forward and input gradient; trains V1 at full size
+   (B=16, 8192 samples, seeded weights, seeded
    synthetic audio) for TRAIN_STEPS steps of ``make_train_step`` with the
    counts set to 0 just before and read just after (and per step): checks
    finite metrics, that every parameter group and scale 0's spectral ``u``
@@ -56,10 +58,40 @@ into the git-ignored ``build/kernels``), then:
    has one entry, the before conv having one output channel, so it stays
    +-1), the per-step launches against the
    count derived from the step's structure, and step 1's loss tree against
-   the same step with ``member_impl='interpret'`` within DISTILL_REL_TOL;
-   prints ms per step and the stream-graph kernels' share of one profiled
-   step;
-10. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+   the same step with ``member_impl='interpret'`` within DISTILL_REL_TOL,
+   its gradients (Adam first moments) leaf by leaf within STEP_GRAD_TOL and
+   its updated parameters group by group within STEP_UPDATE_TOL, beside the
+   reference's own floor (its conv outputs jittered by JITTER); prints ms
+   per step and the stream-graph kernels' share of one profiled step;
+10. holds the per-layer conv kernels (``msd_conv1d_lrelu``: forward and
+   dx) against their plain versions at every V1 MSD layer (full width, the
+   three scales' lengths of a B=16 x 8192 step, N=2 and N=16) and at every
+   distinct conv call of ``configs/distill.json`` at its step's shapes (the
+   generator and classifiers, and the discriminator's members interpreted),
+   fp32 (TF32 off) within FP32_TOL and bf16 within BF16_REL_TOL of the plain
+   tensor's peak, dx over the kernel's own saved output; prints per-layer
+   times of kernel, plain version and cuDNN, and the bound;
+11. trains V1 as in phase 6 with ``msd_conv_impl='pallas'`` (every MSD conv
+   through the per-layer kernels), the launches per step against the
+   derived count (``msd_launches_per_step``) and step 1 against
+   ``msd_conv_impl='xla'``;
+12. runs distillation steps as in phase 9 with ``conv_impl='pallas'`` (every
+   conv node of the generator and classifiers through the per-layer
+   kernels; the members through the stream-graph kernels), both kernels'
+   launches per step against their derived counts
+   (``distill_msd_launches_per_step``, each model's conv-op calls held
+   against its conv nodes) and step 1 (losses, gradients, parameters)
+   against ``conv_impl='auto'``; prints ms per step and both kernels' share
+   of one profiled step;
+13. extracts log-mels through ``log_mel_spectrogram(y, MelConfig.from_hparams(
+   h, method='pallas'))`` at B=16 x 10 s, 16 x 8192 and 16 x 8305 samples
+   with the count set to 0 just before and read just after, holds the fused
+   log-mel kernel against its plain version (forward within 2e-4 + 1e-4
+   |plain|, the gradient of a sin-weighted sum within FP32_TOL of its peak)
+   and prints kernel, plain and cuFFT times, the bound of the work a log-mel
+   needs (a real FFT per frame) and that of the kernel's dense-DFT
+   algorithm;
+14. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Any failed check raises: the script then exits non-zero and prints no ok
@@ -112,6 +144,18 @@ DISTILL_STEPS = 5
 # Step 1's loss tree, fused members against the interpreter from the same
 # state and batch (fp32, TF32 off): the forwards differ by float order only.
 DISTILL_REL_TOL = 1e-3
+# Step 1's gradients and updated parameters against the same reference step.
+# The step's losses have kinks (leaky-ReLU masks, L1 signs, the log clip),
+# so float-order noise moves a few gradient elements by far more than its
+# own size: the reference step with every conv output jittered by JITTER
+# (relative; the per-layer conv kernel's outputs differ from cuDNN's by
+# about as much) is printed beside as the floor. Allowed: each leaf's
+# gradient within 5e-2 of its norm; each group's parameter difference
+# within 0.2 of its update's norm, i.e. AdamW's ~lr * sign(g) first step
+# taken the other way on about 1% of the elements.
+STEP_GRAD_TOL = 5e-2
+STEP_UPDATE_TOL = 0.2
+JITTER = 1e-7
 SG_ELEMENTS = 12  # elements per member in phase 8: the generated-audio traversals' batch
 # bench.py's label set for the distillation step (copied: bench.py imports JAX)
 DISTILL_LABELS = {
@@ -362,15 +406,69 @@ def time_stack(cs, x0, ks, bs, specs, dys, dtype, scale) -> dict:
 PASSES_PER_STEP = {"fwd": 4, "bwd_dx": 3, "bwd_dw": 2}
 
 
-def train_phase(h, dev) -> dict:
-    """Phase 6: V1 train steps at full size through ``make_train_step``."""
+def msd_passes(layer: int) -> dict:
+    """Passes of MSD conv ``layer`` through the two ``msd_conv1d_lrelu``
+    kernels in one V1 train step with ``msd_conv_impl='pallas'``, counted
+    from the step's structure: per scale the D update traverses real and
+    fake, the G update both again (4 forward). dx: the D update's inputs
+    (the waveform and the detached fake) need no gradient, so conv_0 skips
+    its dx there; in the G update the weights are frozen, so the real
+    traversal has no backward at all and the fake one runs every conv's dx
+    (3 dx, 1 for conv_0)."""
+    return {"fwd": 4, "bwd_dx": 3 if layer else 1}
+
+
+def msd_launches_per_step(n_scales: int, n_convs: int = 8) -> dict:
+    """Launches of the two kernels in one V1 train step (:func:`msd_passes`
+    over the 8 convs of each scale: 96 forward and 66 dx at 3 scales)."""
+    return {k: n_scales * sum(msd_passes(layer)[k] for layer in range(n_convs))
+            for k in ("fwd", "bwd_dx")}
+
+
+def pool_reading(dev) -> None:
+    """The port's average pool against the CPU on the card, forward and input
+    gradient, at the MSD's waveform pool and a DSL pool on a per-layer conv
+    kernel's (contiguous) output; beside it F.avg_pool1d on the same
+    channels-last view, which the port does not call."""
+    from hifigan_tpu_torch.ops.conv import avg_pool1d
+
+    gen = torch.Generator().manual_seed(SEED + 70)
+    for n, t, c, k, s, p in ((16, 8192, 1, 4, 2, 2), (6, 14560, 12, 31, 1, 15)):
+        x = torch.randn((n, t, c), generator=gen)
+        xc, xd, xf = (x.clone().requires_grad_(), x.to(dev).requires_grad_(),
+                      x.to(dev).transpose(1, 2).requires_grad_())
+        want = avg_pool1d(xc, k, s, padding=p)
+        dy = torch.randn(want.shape, generator=gen)
+        (gw,) = torch.autograd.grad(want, xc, dy)
+        got = avg_pool1d(xd, k, s, padding=p)
+        (gg,) = torch.autograd.grad(got, xd, dy.to(dev))
+        (gf,) = torch.autograd.grad(F.avg_pool1d(xf, k, s, p), xf, dy.to(dev).transpose(1, 2))
+        err = max((got.cpu() - want).abs().max().item(), (gg.cpu() - gw).abs().max().item())
+        f_err = (gf.transpose(1, 2).cpu() - gw).abs().max().item()
+        print(f"avg pool ({n}, {t}, {c}) k{k} s{s} p{p}: the port's forward and input gradient "
+              f"on the card vs the CPU max_abs_err {err:.3e}; F.avg_pool1d's input gradient on "
+              f"the channels-last view {f_err:.3e} (gradient peak {gw.abs().max().item():.3e})")
+        check(err <= 1e-6, f"avg pool ({n}, {t}, {c}): {err} on the card vs the CPU")
+
+
+def train_phase(h, dev, msd_impl: str = "auto") -> dict:
+    """Phases 6 and 11: V1 train steps at full size through
+    ``make_train_step`` with ``msd_conv_impl`` ``'auto'`` (the conv-stack
+    kernels) or ``'pallas'`` (the per-layer conv kernels)."""
     from hifigan_tpu_torch.config import AttrDict
     from hifigan_tpu_torch.ops import conv_stack as cs
+    from hifigan_tpu_torch.ops import msd_conv
     from hifigan_tpu_torch.train.vocoder import create_train_state, make_train_step
 
-    n_scales = 3
-    layers = 7  # MSD layers 1-6 + conv_post, one launch each per pass
-    per_step = {k: v * n_scales * layers for k, v in PASSES_PER_STEP.items()}
+    h = AttrDict(h, msd_conv_impl=msd_impl)
+    n_scales = h.get("msd_num_scales", 3)
+    if msd_impl == "pallas":
+        ops, what = msd_conv, "per-layer conv"
+        per_step = msd_launches_per_step(n_scales)
+    else:
+        ops, what = cs, "conv-stack"
+        layers = 7  # MSD layers 1-6 + conv_post, one launch each per pass
+        per_step = {k: v * n_scales * layers for k, v in PASSES_PER_STEP.items()}
     step_fn = make_train_step(h)
     batches = [{"audio": synthetic_audio(h["batch_size"], h["segment_size"], h["sampling_rate"],
                                          SEED + 10 + i)} for i in range(TRAIN_STEPS)]
@@ -387,20 +485,20 @@ def train_phase(h, dev) -> dict:
               for name in ("generator", "mpd", "msd")}
     u0 = {k: v.clone() for k, v in state.spectral_msd.items() if v.numel() > 1}
     step_ms, launches_per_step, history = [], [], []
-    cs.reset_launches()
+    ops.reset_launches()
     for i, batch in enumerate(batches):
-        counts = cs.launches()
+        counts = ops.launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        launches_per_step.append({k: v - counts[k] for k, v in cs.launches().items()})
+        launches_per_step.append({k: v - counts[k] for k, v in ops.launches().items()})
         history.append({k: v.item() for k, v in metrics.items()})
-    launches = cs.launches()
+    launches = ops.launches()
     for i, (m, n) in enumerate(zip(history, launches_per_step)):
         check(all(np.isfinite(v) for v in m.values()), f"step {i + 1}: non-finite metrics {m}")
-        check(n == per_step, f"step {i + 1}: conv-stack launches {n}, derived {per_step}")
+        check(n == per_step, f"step {i + 1}: {what} launches {n}, derived {per_step}")
     for name, params in before.items():
         after = getattr(state, name).parameters()
         moved = sum(not torch.equal(a, b) for a, b in zip(params, after))
@@ -408,15 +506,16 @@ def train_phase(h, dev) -> dict:
     check(any(not torch.equal(u, state.spectral_msd[k]) for k, u in u0.items()),
           "scale 0's spectral u did not move")
     rel = {k: abs(history[0][k] - v) / abs(v) for k, v in ref_metrics.items()}
-    print(f"train step 1, fused conv stack: {json.dumps(history[0])}")
+    print(f"train step 1, msd_conv_impl={msd_impl!r} ({what} kernels): "
+          f"{json.dumps(history[0])}")
     print(f"train step 1, msd_conv_impl='xla': {json.dumps(ref_metrics)}")
     print(f"train step 1 relative difference: {json.dumps(rel)} (limit {TRAIN_REL_TOL})")
-    check(max(rel.values()) <= TRAIN_REL_TOL, f"step 1 fused vs xla: {rel}")
+    check(max(rel.values()) <= TRAIN_REL_TOL, f"step 1 {msd_impl} vs xla: {rel}")
     ms = float(np.median(step_ms[2:]))
-    print(f"train V1 B={h['batch_size']}x{h['segment_size']} fp32 (TF32 off): step ms "
-          f"{[round(t, 3) for t in step_ms]}, median of steps 3-{TRAIN_STEPS}: {ms:.3f} ms; "
-          f"conv-stack launches per step {per_step}; metrics step {TRAIN_STEPS}: "
-          f"{json.dumps(history[-1])}")
+    print(f"train V1 msd_conv_impl={msd_impl!r} B={h['batch_size']}x{h['segment_size']} fp32 "
+          f"(TF32 off): step ms {[round(t, 3) for t in step_ms]}, median of steps "
+          f"3-{TRAIN_STEPS}: {ms:.3f} ms; {what} launches per step {per_step}; metrics step "
+          f"{TRAIN_STEPS}: {json.dumps(history[-1])}")
     return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel}
 
 
@@ -454,7 +553,7 @@ def cli_train_phase(h) -> None:
         print("cli train wrote g_00000002/do_00000002 and resumed to step 4")
 
 
-def distill_models(config: dict, dev, member_impl: str = "auto"):
+def distill_models(config: dict, dev, member_impl: str = "auto", conv_impl: str = "auto"):
     """The distillation models of ``config`` with uniform label weights."""
     from hifigan_tpu_torch.distill.model import DistillModels
 
@@ -462,7 +561,7 @@ def distill_models(config: dict, dev, member_impl: str = "auto"):
                        "false": tuple([1.0 - 1.0 / len(v)] * len(v))}
                    for k, v in group.items()} for g, group in DISTILL_LABELS.items()}
     return DistillModels(config, DISTILL_LABELS, weights, sampling_rate=config["sampling_rate"],
-                         member_impl=member_impl, device=dev)
+                         member_impl=member_impl, conv_impl=conv_impl, device=dev)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -676,6 +775,197 @@ def distill_launches_per_step(n_blocks: int, n_mel: int) -> dict:
     return {"fwd": 4 * ops, "bwd_dx": ops + 2 * live_dx, "bwd_dw": 2 * live_dw}
 
 
+def conv_op_calls(model, *inputs) -> list:
+    """Every ``msd_conv1d_lrelu`` call of one forward of ``model``: (whether x
+    needs a gradient, x, kernel, bias, keywords), detached. The op is spied
+    on and its plain version run in its place, so nothing is launched."""
+    from hifigan_tpu_torch.ops import msd_conv
+
+    rec, real = [], msd_conv.msd_conv1d_lrelu
+
+    def spy(x, kernel, bias, **kw):
+        rec.append((x.requires_grad, x.detach(), kernel.detach(),
+                    None if bias is None else bias.detach(), kw))
+        return msd_conv.msd_conv1d_lrelu_reference(x, kernel, bias, **kw)
+
+    msd_conv.msd_conv1d_lrelu = spy
+    try:
+        model(*inputs)
+    finally:
+        msd_conv.msd_conv1d_lrelu = real
+    return rec
+
+
+def kernel_conv_nodes(model) -> int:
+    """The conv nodes that one forward of a DSL model sends to
+    ``msd_conv1d_lrelu``, counted from its structure alone: every
+    ``NormConv1d`` whose stride and dilation its ``conv_impl`` routes to the
+    op, and those of ensemble members evaluated one by one (an ensemble that
+    the stream-graph kernel takes whole runs none)."""
+    from hifigan_tpu_torch.dsl.fused_member import StreamUnsupported, parse_member
+    from hifigan_tpu_torch.dsl.normalize import SEQ
+
+    n = sum(model._conv_backend(c.stride, c.dilation) == "kernel" for c in model.convs.values())
+    for members in model.ensembles.values():
+        cfg = members[0].config
+        fused = model._fused() and cfg[0] != SEQ and cfg[1] == "pfmap"
+        if fused:
+            try:
+                parse_member(cfg[2], "m")
+            except StreamUnsupported:
+                fused = False
+        if not fused:
+            n += sum(kernel_conv_nodes(m) for m in members)
+    return n
+
+
+def conv_op_counts(model, *inputs) -> tuple[int, int]:
+    """(conv-op calls of one forward of ``model``, how many of them read an
+    input that needs no gradient), with the model's parameters trainable and
+    constant inputs. The calls are counted by a spy and held against the
+    count taken from the model's structure, so a conv node that missed the
+    op would show."""
+    rec = conv_op_calls(model, *inputs)
+    nodes = kernel_conv_nodes(model)
+    check(len(rec) == nodes, f"{type(model).__name__}: {len(rec)} calls of the per-layer conv op "
+                             f"in one forward, {nodes} conv nodes routed to it")
+    return len(rec), sum(not r[0] for r in rec)
+
+
+def distill_msd_launches_per_step(models, segment_length: int) -> dict:
+    """Launches of the two ``msd_conv1d_lrelu`` kernels in one distill step
+    with ``conv_impl='pallas'``, composed from the step's structure
+    (``distill/train.py::compute_losses``) and each model's conv-op calls
+    per forward (c) and the calls among them whose input needs no gradient
+    when the model's own input needs none (i), from :func:`conv_op_counts`:
+
+    - forward: encoder and decoder twice; per classifier key the keepers 3
+      times (once live, twice without grad), the hunters twice (the frozen
+      copy and the live one), the sniffers twice (once without grad, once
+      live); the discriminator 4 times (its convs outside fused members);
+    - dx: the encoder on the waveform (c - i) and on generated audio (c); the
+      decoder twice (c); the live keepers (c), the hunters' frozen copy on
+      the live embedding (c) and the live hunters and sniffers on detached
+      inputs (c - i); the live discriminator twice on constant audio (c - i)
+      and its frozen copy on generated audio (c)."""
+    dev = models.device
+    wav = torch.zeros((1, segment_length, 1), device=dev)
+    half = models.embedding_channels // 2
+    emb_half = torch.zeros((1, segment_length // models.embedding_size, half), device=dev)
+    with torch.no_grad():
+        emb = models.encoder(wav)
+    counts = {"encoder": conv_op_counts(models.encoder, wav),
+              "decoder": conv_op_counts(models.decoder, emb),
+              # a copy: a call advances the live discriminator's spectral state
+              "discriminator": conv_op_counts(copy.deepcopy(models.discriminator), wav)}
+    fwd = 2 * sum(counts[k][0] for k in ("encoder", "decoder")) + 4 * counts["discriminator"][0]
+    dx = (2 * counts["encoder"][0] - counts["encoder"][1] + 2 * counts["decoder"][0]
+          + 3 * counts["discriminator"][0] - 2 * counts["discriminator"][1])
+    for key in models.keepers:
+        ck, _ = conv_op_counts(models.keepers[key], emb_half)
+        ch, ih = conv_op_counts(models.hunters[key], emb_half)
+        with torch.no_grad():
+            preds = models.keepers[key](emb_half)["mean"][key]
+        cs, is_ = conv_op_counts(models.sniffers[key], preds)
+        fwd += 3 * ck + 2 * ch + 2 * cs
+        dx += ck + 2 * ch - ih + cs - is_
+    return {"fwd": fwd, "bwd_dx": dx}
+
+
+def optimizer_snapshot(state) -> dict:
+    """Each group's parameters and Adam first moments, cloned. After step 1
+    a first moment is (1 - b1) x the group's clipped gradient."""
+    return {g: ([p.detach().clone() for p in o.params], [m.clone() for m in o.mu])
+            for g, o in state.optimizers.items()}
+
+
+def parameter_names(models) -> dict:
+    """id(parameter) -> its name in the distillation models."""
+    names = {}
+    for key in ("encoder", "decoder", "discriminator", "keepers", "hunters", "sniffers"):
+        obj = getattr(models, key)
+        subs = obj.items() if isinstance(obj, dict) else [("", obj)]
+        for sub, mod in subs:
+            for n, p in mod.named_parameters():
+                names[id(p)] = ".".join(x for x in (key, sub, n) if x)
+    return names
+
+
+def held_update(names: dict, lrs: dict, before: dict, got: dict, want: dict) -> dict:
+    """Step 1's gradients (the Adam first moments) and updated parameters of
+    the six groups against a reference step's: each leaf's gradient
+    difference in norm over its gradient's norm (the worst leaf), and each
+    group's parameter difference in norm over the reference update's norm
+    (the worst group). AdamW's first update is lr * g / (|g| + eps) +
+    lr * wd * p per element, about lr * sign(g), so an element whose gradient
+    two steps put on either side of zero steps 2 lr apart however close the
+    gradients are: a group's update difference is about 2 sqrt(f), f the
+    share of such elements. The reading also splits the parameter
+    difference into those elements and the rest (in units of lr)."""
+    grad_rel, grp_rel = {}, {}
+    n = flips = 0
+    flip_sq = total_sq = agree_dp = 0.0
+    for g, (want_p, want_m) in want.items():
+        got_p, got_m = got[g]
+        dsq = usq = 0.0
+        for name, p0, pg, mg, pw, mw in zip(names[g], before[g], got_p, got_m, want_p, want_m):
+            grad_rel[name] = ((mg - mw).double().norm()
+                              / mw.double().norm().clamp_min(1e-30)).item()
+            dp = (pg - pw).double()
+            sq = float((dp * dp).sum())
+            dsq, usq = dsq + sq, usq + float(((pw - p0).double() ** 2).sum())
+            flip = torch.sign(mg) != torch.sign(mw)
+            n += mw.numel()
+            flips += int(flip.sum())
+            flip_sq, total_sq = flip_sq + float((dp[flip] ** 2).sum()), total_sq + sq
+            if bool((~flip).any()):
+                agree_dp = max(agree_dp, float(dp[~flip].abs().max()) / lrs[g])
+        grp_rel[g] = (dsq / max(usq, 1e-300)) ** 0.5
+    wg, wu = max(grad_rel, key=grad_rel.get), max(grp_rel, key=grp_rel.get)
+    return {"grad_rel": grad_rel[wg], "grad_leaf": wg, "update_rel": grp_rel[wu],
+            "update_group": wu, "elements": n, "sign_flips": flips,
+            "flip_share": flip_sq / total_sq if total_sq > 0 else 0.0,
+            "agree_max_dp_over_lr": agree_dp, "leaves": len(grad_rel)}
+
+
+def update_line(what: str, upd: dict) -> str:
+    return (f"{what}: gradients (Adam first moments) worst leaf {upd['grad_rel']:.3e} of its "
+            f"norm at {upd['grad_leaf']}; parameters worst group {upd['update_rel']:.3e} of its "
+            f"update's norm at {upd['update_group']}; of {upd['elements']} elements "
+            f"{upd['sign_flips']} have first moments of the other sign and carry "
+            f"{100 * upd['flip_share']:.3f}% of the squared parameter difference, elsewhere "
+            f"|dp| <= {upd['agree_max_dp_over_lr']:.3e} lr")
+
+
+class jittered_convs:
+    """Within the block every DSL conv node's output is multiplied by
+    (1 + delta * N(0, 1)), seeded: float-order noise of relative size delta."""
+
+    def __init__(self, delta: float, seed: int):
+        self.delta, self.seed = delta, seed
+
+    def __enter__(self):
+        from hifigan_tpu_torch.dsl.module import ConfigurableModule
+
+        real, delta = ConfigurableModule._conv_node, self.delta
+        gen = None
+
+        def node(mod, p, x, name):
+            nonlocal gen
+            y = real(mod, p, x, name)
+            if gen is None:
+                gen = torch.Generator(device=y.device).manual_seed(self.seed)
+            return y * (1 + delta * torch.randn(y.shape, device=y.device, generator=gen))
+
+        self.real, ConfigurableModule._conv_node = real, node
+        return self
+
+    def __exit__(self, *exc):
+        from hifigan_tpu_torch.dsl.module import ConfigurableModule
+
+        ConfigurableModule._conv_node = self.real
+
+
 def flat_losses(tree, prefix="") -> dict:
     if isinstance(tree, dict):
         out = {}
@@ -685,17 +975,23 @@ def flat_losses(tree, prefix="") -> dict:
     return {prefix: float(tree)}
 
 
-def distill_phase(config: dict, dev) -> dict:
-    """Phase 9: production distillation train steps through the port's main path."""
+def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
+    """Phases 9 and 12: production distillation train steps through the
+    port's main path, with the DSL's ``conv_impl`` ``'auto'`` (step 1 held
+    against the interpreted members) or ``'pallas'`` (every conv node of the
+    generator and classifiers through the per-layer conv kernels; step 1
+    held against ``'auto'``)."""
     from hifigan_tpu_torch.distill.train import DistillTrainer
+    from hifigan_tpu_torch.ops import msd_conv
     from hifigan_tpu_torch.ops import stream_graph as sg
     from hifigan_tpu_torch.train.checkpoint import distill_state_dicts, load_distill_variables
 
     cfg = copy.deepcopy(config)
     cfg["learning"]["accumulated_grad_batches"] = 1
-    print("distill: configs/distill.json as shipped but accumulated_grad_batches 1 instead of "
-          f"100 (an in-memory copy), so each of the {DISTILL_STEPS} steps applies an update")
-    models = distill_models(cfg, dev)
+    print(f"distill conv_impl={conv_impl!r}: configs/distill.json as shipped but "
+          "accumulated_grad_batches 1 instead of 100 (an in-memory copy), so each of the "
+          f"{DISTILL_STEPS} steps applies an update")
+    models = distill_models(cfg, dev, conv_impl=conv_impl)
     trainer = DistillTrainer(models, cfg)
     t0 = time.perf_counter()
     state = trainer.create_state(seed=SEED)
@@ -709,40 +1005,66 @@ def distill_phase(config: dict, dev) -> dict:
                                 for g, group in DISTILL_LABELS.items()}}
                for i in range(DISTILL_STEPS + 1)]
 
-    interp = distill_models(cfg, dev, member_impl="interpret")
+    # the reference: the same step with the members interpreted (conv_impl
+    # 'auto') or with the default conv path ('pallas')
+    ref_name = "member_impl='interpret'" if conv_impl == "auto" else "conv_impl='auto'"
+    interp = (distill_models(cfg, dev, member_impl="interpret") if conv_impl == "auto"
+              else distill_models(cfg, dev))
     interp.build(seg_len, seed=SEED)
-    load_distill_variables(interp, distill_state_dicts(models))
+    start = distill_state_dicts(models)
+    load_distill_variables(interp, start)
     trainer_i = DistillTrainer(interp, cfg)
-    _, ref = trainer_i.make_train_step()(trainer_i.create_state(build=False), batches[0])
+    ref_state, ref = trainer_i.make_train_step()(trainer_i.create_state(build=False), batches[0])
     ref = flat_losses(ref)
-    del interp, trainer_i
+    ref_after = optimizer_snapshot(ref_state)
+    del ref_state
+    # the noise floor: the reference step again, from the same start, with
+    # every DSL conv output jittered at float-order size
+    load_distill_variables(interp, start)
+    with jittered_convs(JITTER, SEED + 42):
+        jit_state, _ = trainer_i.make_train_step()(trainer_i.create_state(build=False),
+                                                   batches[0])
+    jit_after = optimizer_snapshot(jit_state)
+    del interp, trainer_i, jit_state, start
     torch.cuda.empty_cache()
 
     n_blocks = len(cfg["models"]["discriminator"]["layers"]) - 2
     n_mel = sum(layer.startswith("all") for layer in cfg["models"]["discriminator"]["layers"][1:-1])
     per_step = distill_launches_per_step(n_blocks, n_mel)
+    msd_per_step = (distill_msd_launches_per_step(models, seg_len) if conv_impl == "pallas"
+                    else {"fwd": 0, "bwd_dx": 0})
     before = {g: [p.detach().clone() for p in opt.params] for g, opt in state.optimizers.items()}
+    ids = parameter_names(models)
+    leaf_names = {g: [ids[id(p)] for p in opt.params] for g, opt in state.optimizers.items()}
     # the spectral conv (the before conv, 1 -> 1 channel) keeps u (1,), which
     # is +-1 by construction; its power-iteration state that moves is v
     spec0 = {k: v.clone() for k, v in models.discriminator.named_buffers()
              if k.endswith(("weight_u", "weight_v"))}
-    check(len(spec0) == 6, f"the live discriminator has {len(spec0)} spectral vectors, expected 6")
+    n_spec = 2 * cfg["models"]["discriminator"].get("ensemble", 3)  # u and v per member
+    check(len(spec0) == n_spec,
+          f"the live discriminator has {len(spec0)} spectral vectors, expected {n_spec}")
     step = trainer.make_train_step()
-    step_ms, launches_per_step, history = [], [], []
+    step_ms, launches_per_step, msd_per_steps, history = [], [], [], []
     sg.reset_launches()
+    msd_conv.reset_launches()
     for batch in batches[:DISTILL_STEPS]:
-        counts = sg.launches()
+        counts, msd_counts = sg.launches(), msd_conv.launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, losses = step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches_per_step.append({k: v - counts[k] for k, v in sg.launches().items()})
+        msd_per_steps.append({k: v - msd_counts[k] for k, v in msd_conv.launches().items()})
         history.append(flat_losses(losses))
-    launches = sg.launches()
-    for i, (h, n) in enumerate(zip(history, launches_per_step)):
+        if len(history) == 1:
+            after_1 = optimizer_snapshot(state)
+    launches, msd_launches = sg.launches(), msd_conv.launches()
+    for i, (h, n, nm) in enumerate(zip(history, launches_per_step, msd_per_steps)):
         check(all(np.isfinite(v) for v in h.values()), f"distill step {i + 1}: non-finite losses")
         check(n == per_step, f"distill step {i + 1}: stream-graph launches {n}, derived {per_step}")
+        check(nm == msd_per_step, f"distill step {i + 1}: per-layer conv launches {nm}, "
+                                  f"derived {msd_per_step}")
     for g, params in before.items():
         moved = sum(not torch.equal(a, b) for a, b in zip(params, state.optimizers[g].params))
         check(moved == len(params), f"group {g}: {len(params) - moved} of {len(params)} "
@@ -756,17 +1078,35 @@ def distill_phase(config: dict, dev) -> dict:
           f"{[bufs[k].tolist() for k in spec0 if k.endswith('weight_u')]}, every v moved")
     rel = {k: abs(history[0][k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
     worst = max(rel, key=rel.get)
-    print(f"distill step 1 total, fused members {history[0]['/total']:.6f}, interpreter "
-          f"{ref['/total']:.6f}; worst relative difference over {len(rel)} losses "
+    print(f"distill step 1 total, conv_impl={conv_impl!r} {history[0]['/total']:.6f}, "
+          f"{ref_name} {ref['/total']:.6f}; worst relative difference over {len(rel)} losses "
           f"{rel[worst]:.3e} at {worst} (limit {DISTILL_REL_TOL})")
-    check(rel[worst] <= DISTILL_REL_TOL, f"distill step 1 fused vs interpret: {worst} {rel[worst]}")
+    check(rel[worst] <= DISTILL_REL_TOL,
+          f"distill step 1 conv_impl={conv_impl!r} vs {ref_name}: {worst} {rel[worst]}")
+    upd = held_update(leaf_names, trainer.flat_groups, before, after_1, ref_after)
+    floor = held_update(leaf_names, trainer.flat_groups, before, jit_after, ref_after)
+    del after_1, ref_after, jit_after
+    print(update_line(f"distill step 1, conv_impl={conv_impl!r} vs {ref_name}", upd))
+    print(update_line(f"distill step 1, {ref_name} with its conv outputs jittered by {JITTER:g} "
+                      f"vs {ref_name} (the noise floor)", floor))
+    check(upd["leaves"] == len(ids), f"{upd['leaves']} leaves held of {len(ids)} parameters")
+    check(upd["grad_rel"] <= STEP_GRAD_TOL,
+          f"distill step 1 gradients, conv_impl={conv_impl!r} vs {ref_name}: "
+          f"{upd['grad_leaf']} {upd['grad_rel']} > {STEP_GRAD_TOL}")
+    check(upd["update_rel"] <= STEP_UPDATE_TOL,
+          f"distill step 1 parameters, conv_impl={conv_impl!r} vs {ref_name}: "
+          f"{upd['update_group']} {upd['update_rel']} > {STEP_UPDATE_TOL}")
     ms = float(np.median(step_ms[2:]))
-    print(f"distill B={bsz}x{seg_len} fp32 (TF32 off): step ms {[round(t, 3) for t in step_ms]}, "
-          f"median of steps 3-{DISTILL_STEPS}: {ms:.3f} ms ({bsz * seg_len / cfg['sampling_rate'] / ms * 1e3:.2f}x "
-          f"real time); stream-graph launches per step {per_step}; total loss by step "
-          f"{[round(h['/total'], 4) for h in history]}")
+    print(f"distill conv_impl={conv_impl!r} B={bsz}x{seg_len} fp32 (TF32 off): step ms "
+          f"{[round(t, 3) for t in step_ms]}, median of steps 3-{DISTILL_STEPS}: {ms:.3f} ms "
+          f"({bsz * seg_len / cfg['sampling_rate'] / ms * 1e3:.2f}x real time); stream-graph "
+          f"launches per step {per_step}; per-layer conv launches per step {msd_per_step}; "
+          f"total loss by step {[round(h['/total'], 4) for h in history]}")
+    out = {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel[worst],
+           "msd_launches": msd_launches, "msd_per_step": msd_per_step, "update": upd,
+           "update_floor": floor}
 
-    # one more step under the profiler: the stream-graph kernels' share of device time
+    # one more step under the profiler: the kernels' share of device time
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -777,12 +1117,16 @@ def distill_phase(config: dict, dev) -> dict:
     on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.time_range.elapsed_us() for e in on_card)
     sg_us = sum(e.time_range.elapsed_us() for e in on_card if "::sg_" in e.name)
+    msd_us = sum(e.time_range.elapsed_us() for e in on_card if "::msd_" in e.name)
     share = {"step_device_ms": dev_us / 1e3, "sg_device_ms": sg_us / 1e3,
-             "idle_share": 1 - dev_us / 1e3 / ms, "device_events": len(on_card)}
+             "msd_device_ms": msd_us / 1e3, "idle_share": 1 - dev_us / 1e3 / ms,
+             "device_events": len(on_card)}
     if dev_us > 0:
-        print(f"profiled step: device busy {dev_us / 1e3:.3f} ms, of which the stream-graph "
-              f"kernels {sg_us / 1e3:.3f} ms ({100 * sg_us / dev_us:.1f}%); {len(on_card)} "
-              f"device events; idle {100 * share['idle_share']:.1f}% of the median step")
+        print(f"profiled step (conv_impl={conv_impl!r}): device busy {dev_us / 1e3:.3f} ms, of "
+              f"which the stream-graph kernels {sg_us / 1e3:.3f} ms ({100 * sg_us / dev_us:.1f}%) "
+              f"and the per-layer conv kernels {msd_us / 1e3:.3f} ms "
+              f"({100 * msd_us / dev_us:.1f}%); {len(on_card)} device events; idle "
+              f"{100 * share['idle_share']:.1f}% of the median step")
         by_name: dict = {}
         for e in on_card:
             n, us = by_name.get(e.name, (0, 0.0))
@@ -791,8 +1135,301 @@ def distill_phase(config: dict, dev) -> dict:
             print(f"  device {us / 1e3:8.3f} ms {n:6d}x  {name[:110]}")
     else:
         print("profiled step: the profiler reported no device time (not measured)")
-    return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel[worst],
-            "share": share}
+    return dict(out, share=share)
+
+
+def conv_cost(x: torch.Tensor, k: int, ci_g: int, y: torch.Tensor) -> dict:
+    """FLOP of one pass and the bytes each pass must move: forward x, W, b
+    in and y out; dx dy, y, W in and dx out."""
+    esize = x.element_size()
+    w = k * ci_g * y.shape[2] * esize
+    flop = 2 * y.numel() * k * ci_g
+    return {"flop": flop, "fwd": x.numel() * esize + w + y.shape[2] * 4 + y.numel() * esize,
+            "bwd_dx": 2 * y.numel() * esize + w + x.numel() * esize}
+
+
+def bound_ms(flop: float, nbytes: float, peak: float) -> tuple[float, str]:
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def library_conv(xc, wc, b, kw) -> torch.Tensor:
+    """One cuDNN call chain computing the same function, (N, C, T) layout: a yardstick only."""
+    pads = kw["padding"] if isinstance(kw["padding"], tuple) else (kw["padding"],) * 2
+    z = F.conv1d(F.pad(xc, pads), wc, b, stride=kw["stride"], dilation=kw["dilation"],
+                 groups=kw["groups"])
+    return F.leaky_relu(z, kw["slope"]) if kw["slope"] != 1.0 else z
+
+
+def held_conv(msd_conv, tag: str, x, kern, bias, kw, tol_rel: float, gen, errs: dict,
+              times: bool = False) -> dict | None:
+    """The B5 forward and dx against their plain versions on one call's
+    operands (dx over the kernel's own saved output); with ``times``, the
+    CUDA-event times of kernel, plain version and library call."""
+    def held(what, got, want, kind):
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{tag} {what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{tag} {what}: non-finite")
+        check(err <= tol_rel * peak, f"{tag} {what}: error {err} > {tol_rel} * {peak}")
+        errs[kind] = max(errs[kind], err)
+
+    xk = x.clone().requires_grad_()
+    with torch.no_grad():
+        y = msd_conv.msd_conv1d_lrelu(x, kern, bias, **kw)
+        torch.cuda.synchronize()
+        held("y", y, msd_conv.msd_conv1d_lrelu_reference(x, kern, bias, **kw), "fwd")
+    yk = msd_conv.msd_conv1d_lrelu(xk, kern, bias, **kw)
+    dy = (torch.randn(yk.shape, device=x.device, generator=gen) * 0.01).to(x.dtype)
+    (dx,) = torch.autograd.grad(yk, [xk], dy, retain_graph=times)
+    torch.cuda.synchronize()
+    want, _, _ = msd_conv.msd_conv1d_lrelu_backward_reference(x, kern, yk.detach(), dy,
+                                                              weight_grads=False, **kw)
+    held("dx", dx, want, "bwd_dx")
+    if not times:
+        return None
+    reps = 10
+    saved = yk.detach()
+    xc = x.transpose(1, 2).contiguous()
+    wc = kern.to(x.dtype).permute(2, 1, 0).contiguous()
+    bc = None if bias is None else bias.to(x.dtype)
+    with torch.no_grad():
+        k_fwd = time_ms(lambda: msd_conv.msd_conv1d_lrelu(x, kern, bias, **kw), reps)
+        p_fwd = time_ms(lambda: msd_conv.msd_conv1d_lrelu_reference(x, kern, bias, **kw), reps)
+        l_fwd = time_ms(lambda: library_conv(xc, wc, bc, kw), reps)
+        p_dx = time_ms(lambda: msd_conv.msd_conv1d_lrelu_backward_reference(
+            x, kern, saved, dy, weight_grads=False, **kw), reps)
+    k_dx = time_ms(lambda: torch.autograd.grad(yk, [xk], dy, retain_graph=True), reps)
+    xl = xc.clone().requires_grad_()
+    yl = library_conv(xl, wc, bc, kw)
+    dyl = dy.transpose(1, 2).contiguous()
+    l_dx = time_ms(lambda: torch.autograd.grad(yl, [xl], dyl, retain_graph=True), reps)
+    return {"ms": {"fwd": k_fwd, "bwd_dx": k_dx}, "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx},
+            "library_ms": {"fwd": l_fwd, "bwd_dx": l_dx},
+            "cost": conv_cost(x, kern.shape[0], kern.shape[1], y)}
+
+
+def msd_conv_phase(msd, distill_cfg: dict, dev) -> dict:
+    """Phase 10: the per-layer conv kernels against their plain versions at
+    every V1 MSD layer (full width, three scales, N=2 and N=16) and at every
+    distinct conv-node geometry of ``configs/distill.json`` (its generator
+    and classifiers at the step's shapes, and its discriminator's members
+    interpreted), fp32 (TF32 off) and bf16."""
+    from hifigan_tpu_torch.ops import msd_conv
+    from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, avg_pool1d
+
+    errs = {dt: {"fwd": 0.0, "bwd_dx": 0.0} for dt in (torch.float32, torch.bfloat16)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    wav = torch.from_numpy(synthetic_audio(max(STACK_BATCHES), SEGMENT, 22050, SEED + 51)).to(dev)
+    rows = []  # fp32, N=16: one per (scale, layer)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL
+        y = wav
+        for scale, d in enumerate(msd.discriminators):
+            if scale:
+                y = avg_pool1d(y[..., None], 4, 2, padding=2)[..., 0]
+            convs = [*d.convs, d.conv_post]
+            for n in STACK_BATCHES:
+                h = y[:n, :, None].to(dtype).contiguous()
+                for li, conv in enumerate(convs):
+                    kern, bias = (t.detach() for t in conv.kernel_nwc(False, dtype))
+                    kw = dict(stride=conv.stride, padding=conv.padding, dilation=conv.dilation,
+                              groups=conv.groups, slope=LRELU_SLOPE if li < 7 else 1.0)
+                    tag = f"msd scale {scale} layer {li} T={h.shape[1]} N={n} {str(dtype)[6:]}"
+                    timed = dtype == torch.float32 and n == max(STACK_BATCHES)
+                    row = held_conv(msd_conv, tag, h, kern, bias, kw, tol, gen, errs[dtype], timed)
+                    if row is not None:
+                        row.update(scale=scale, layer=li, T=h.shape[1])
+                        rows.append(row)
+                        print(f"{tag}: kernel fwd {row['ms']['fwd']:.4f} dx {row['ms']['bwd_dx']:.4f} ms, "
+                              f"plain fwd {row['plain_ms']['fwd']:.4f} dx {row['plain_ms']['bwd_dx']:.4f} ms, "
+                              f"cudnn fwd {row['library_ms']['fwd']:.4f} dx "
+                              f"{row['library_ms']['bwd_dx']:.4f} ms, bound "
+                              f"{bound_ms(row['cost']['flop'], row['cost']['fwd'], H100_FP32_FLOPS)[0]:.4f} ms "
+                              f"({row['cost']['flop'] / 1e9:.2f} GFLOP; fwd "
+                              f"{row['cost']['flop'] / max(row['ms']['fwd'], 1e-6) / 1e9:.2f} TFLOP/s)")
+                    with torch.no_grad():
+                        h = msd_conv.msd_conv1d_lrelu(h, kern, bias, **kw)
+        print(f"msd conv {str(dtype)[6:]}: every V1 MSD layer at three scales, N={STACK_BATCHES}, "
+              f"forward and dx held (max_abs_err {json.dumps(errs[dtype])})")
+
+    # the distillation's conv nodes, recorded at the step's shapes
+    models = distill_models(distill_cfg, dev, member_impl="interpret", conv_impl="pallas")
+    seg_len = distill_cfg["loops"]["train"]["segment_length"]
+    models.build(seg_len, seed=SEED)
+    bsz = distill_cfg["loops"]["train"]["batch_size"]
+    wav3 = torch.from_numpy(synthetic_audio(bsz, seg_len, distill_cfg["sampling_rate"],
+                                            SEED + 52)).to(dev)[:, :, None]
+    with torch.no_grad():
+        emb = models.encoder(wav3)
+    calls = conv_op_calls(models.encoder, wav3) + conv_op_calls(models.decoder, emb)
+    for key in models.keepers:
+        calls += conv_op_calls(models.keepers[key], emb[key])
+        calls += conv_op_calls(models.hunters[key], emb[key])
+        with torch.no_grad():
+            preds = models.keepers[key](emb[key])["mean"][key]
+        calls += conv_op_calls(models.sniffers[key], preds)
+    calls += conv_op_calls(models.discriminator, wav3)
+    del models
+    distinct = {}
+    for _, x, kern, bias, kw in calls:
+        key = (tuple(x.shape), tuple(kern.shape), bias is None,
+               tuple(sorted((k, str(v)) for k, v in kw.items())))
+        distinct.setdefault(key, (x, kern, bias, kw))
+    geoms = sorted({(k[0][2], k[1][2], k[1][0], kw["stride"], kw["dilation"], kw["groups"],
+                     str(kw["padding"])) for k, (_, _, _, kw) in distinct.items()})
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL
+        for i, (x, kern, bias, kw) in enumerate(distinct.values()):
+            tag = (f"distill conv {tuple(x.shape)} k{tuple(kern.shape)} s{kw['stride']} "
+                   f"d{kw['dilation']} g{kw['groups']} p{kw['padding']} {str(dtype)[6:]}")
+            held_conv(msd_conv, tag, x.to(dtype).contiguous(), kern.to(dtype), bias, kw, tol, gen,
+                      errs[dtype])
+    print(f"msd conv: {len(distinct)} distinct distill conv calls ({len(geoms)} geometries "
+          f"(c_in, c_out, k, stride, dilation, groups, padding): {geoms}) held in fp32 and bf16; "
+          f"max_abs_err {json.dumps({str(k)[6:]: v for k, v in errs.items()})}")
+    return {"errs": errs, "rows": rows, "distill_geoms": len(geoms)}
+
+
+def logmel_cost(batch: int, frames: int, t: int, cfg) -> dict:
+    """The operations and bytes one log-mel extraction needs: per frame the
+    Hann window, a real FFT of n_fft points (2.5 n log2 n operations, half
+    the 5 n log2 n of a complex radix-2 FFT), the power, the filterbank's
+    nonzeros (2 each) and the clamp and log; the signal, the window and the
+    filterbank's nonzeros read once and the output written once. Beside it,
+    the dense-DFT algorithm's own count (the kernel's: the windowed basis as
+    an n_fft x 2 n_bins product and the filterbank dense), which bounds that
+    algorithm only."""
+    import math
+
+    from hifigan_tpu_torch.ops import logmel
+
+    n, n_bins, mels = cfg.n_fft, cfg.n_fft // 2 + 1, cfg.num_mels
+    nnz = int(np.count_nonzero(logmel._tables(cfg)[1]))
+    per_frame = n + 2.5 * n * math.log2(n) + 3 * n_bins + 2 * nnz + 2 * mels
+    dense = 2 * n * 2 * n_bins + 3 * n_bins + 2 * n_bins * mels + 2 * mels
+    out = batch * mels * frames
+    return {"flop": batch * frames * per_frame, "bytes": 4 * (batch * t + n + nnz + out),
+            "dense_flop": batch * frames * dense,
+            "dense_bytes": 4 * (batch * t + n * 2 * n_bins + n_bins * mels + out), "nnz": nnz}
+
+
+def logmel_phase(h, dev) -> dict:
+    """Phase 13: the fused log-mel kernel through mel extraction
+    (``log_mel_spectrogram(y, MelConfig.from_hparams(h, method='pallas'))``)
+    at the V1 geometry, with the count set to 0 just before and read just
+    after, held against its plain version (forward within 2e-4 + 1e-4 |plain|,
+    the gradient of a sin-weighted sum within FP32_TOL of the plain
+    gradient's peak); kernel, plain and cuFFT (``method='auto'``) times."""
+    from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
+    from hifigan_tpu_torch.ops import logmel
+
+    cfg = MelConfig.from_hparams(h, method="pallas")
+    auto = MelConfig.from_hparams(h)
+    sr = h["sampling_rate"]
+    lengths = {"16 x 10 s": 10 * sr, "16 x 8192": SEGMENT, "16 x 8192+113": SEGMENT + 113}
+    ys = {name: torch.from_numpy(synthetic_audio(16, t, sr, SEED + 60 + i)).to(dev)
+          for i, (name, t) in enumerate(lengths.items())}
+    logmel.LAUNCHES = 0
+    outs = {name: log_mel_spectrogram(y, cfg) for name, y in ys.items()}
+    torch.cuda.synchronize()
+    launches = logmel.LAUNCHES
+    check(launches == len(ys), f"mel extraction launched the log-mel kernel {launches} times, "
+                               f"expected {len(ys)}")
+    err, grad_err, rows = 0.0, 0.0, {}
+    for name, y in ys.items():
+        got = outs[name]
+        with torch.no_grad():
+            want = logmel.fused_log_mel_reference(y, cfg)
+        check(got.shape == want.shape == (16, cfg.num_mels, logmel.num_frames(y.shape[1], cfg)),
+              f"log-mel {name}: shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"log-mel {name}: non-finite")
+        diff = (got - want).abs()
+        check(bool((diff <= 2e-4 + 1e-4 * want.abs()).all()),
+              f"log-mel {name}: max error {diff.max().item()} beyond 2e-4 + 1e-4 |plain|")
+        err = max(err, diff.max().item())
+        yk, yp = y.clone().requires_grad_(), y.clone().requires_grad_()
+        (gk,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel(yk, cfg)).sum(), yk)
+        (gp,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel_reference(yp, cfg)).sum(), yp)
+        g_err = (gk - gp).abs().max().item()
+        check(g_err <= FP32_TOL * gp.abs().max().item(),
+              f"log-mel {name}: gradient error {g_err} > {FP32_TOL} * {gp.abs().max().item()}")
+        grad_err = max(grad_err, g_err)
+        with torch.no_grad():
+            k_ms = time_ms(lambda: logmel.fused_log_mel(y, cfg), 10)
+            p_ms = time_ms(lambda: logmel.fused_log_mel_reference(y, cfg), 10)
+            l_ms = time_ms(lambda: log_mel_spectrogram(y, auto), 10)
+        cost = logmel_cost(16, got.shape[2], y.shape[1], cfg)
+        bnd, by = bound_ms(cost["flop"], cost["bytes"], H100_FP32_FLOPS)
+        dense_bnd, dense_by = bound_ms(cost["dense_flop"], cost["dense_bytes"], H100_FP32_FLOPS)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bnd,
+                      "bound_by": by, "dense_dft_bound_ms": dense_bnd}
+        print(f"log-mel {name} ({got.shape[2]} frames): max_abs_err {diff.max().item():.3e}, "
+              f"gradient max_abs_err {g_err:.3e} (peak {gp.abs().max().item():.3e}); kernel "
+              f"{k_ms:.4f} ms plain {p_ms:.4f} ms cuFFT (method='auto') {l_ms:.4f} ms; bound "
+              f"{bnd:.4f} ms ({by}; FFT count {cost['flop'] / 1e9:.4f} GFLOP with the "
+              f"filterbank's {cost['nnz']} nonzeros, {cost['bytes'] / 1e6:.3f} MB); the dense-DFT "
+              f"algorithm's own bound {dense_bnd:.4f} ms ({dense_by}; "
+              f"{cost['dense_flop'] / 1e9:.2f} GFLOP, the kernel at "
+              f"{cost['dense_flop'] / max(k_ms, 1e-6) / 1e9:.2f} TFLOP/s of it)")
+    return {"launches": launches, "err": err, "grad_err": grad_err, "rows": rows}
+
+
+def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
+                              mel: dict) -> list:
+    """The ``kernels`` line's entries of the per-layer conv and log-mel kernels."""
+    kernels = []
+    for kind, line in (("fwd", 96), ("bwd_dx", 165)):
+        rows = per_layer["rows"]
+        n = [msd_passes(r["layer"])[kind] for r in rows]
+        flop = sum(c * r["cost"]["flop"] for c, r in zip(n, rows))
+        nbytes = sum(c * r["cost"][kind] for c, r in zip(n, rows))
+        bnd, by = bound_ms(flop, nbytes, H100_FP32_FLOPS)
+        entry = {
+            "name": f"msd_conv1d_lrelu.{kind}",
+            "route": "cuda",
+            "source": "hifigan_tpu_torch/csrc/msd_conv.cu",
+            "replaces": f"hifigan_tpu/ops/pallas/msd_conv.py:{line}",
+            "launches": train_b5["launches"][kind] + distill_b5["msd_launches"][kind],
+            "launches_per_step": {"v1_train": train_b5["per_step"][kind],
+                                  "distill": distill_b5["msd_per_step"][kind]},
+            "max_abs_err": per_layer["errs"][torch.float32][kind],
+            "max_abs_err_bf16": per_layer["errs"][torch.bfloat16][kind],
+        }
+        for key in ("ms", "plain_ms", "library_ms"):
+            entry[key] = sum(c * r[key][kind] for c, r in zip(n, rows))
+        entry.update(bound_ms=bnd, bound_by=by, per=(
+            f"launches: the main path's runs of {TRAIN_STEPS} V1 train steps with "
+            f"msd_conv_impl='pallas' and {DISTILL_STEPS} distill steps with conv_impl='pallas'; "
+            "times and bound: one V1 train step (B=16, 8192 samples, fp32; 4 forward passes of "
+            "each MSD conv, 3 dx passes, 1 for conv_0), from CUDA-event times of one pass of "
+            "each conv at each scale (library: cuDNN F.conv1d + F.leaky_relu, its autograd dx); "
+            "max_abs_err: every V1 MSD layer at N=2 and N=16 and every distinct distill conv "
+            "call (function :191)"))
+        kernels.append(entry)
+    ext = mel["rows"]["16 x 10 s"]
+    kernels.append({
+        "name": "fused_log_mel",
+        "route": "cuda",
+        "source": "hifigan_tpu_torch/csrc/logmel.cu",
+        "replaces": "hifigan_tpu/ops/pallas/logmel.py:135",
+        "launches": mel["launches"],
+        "launches_per_step": None,
+        "max_abs_err": mel["err"],
+        "max_abs_err_bf16": None,
+        "ms": ext["ms"], "plain_ms": ext["plain_ms"], "bound_ms": ext["bound_ms"],
+        "bound_by": ext["bound_by"], "library_ms": ext["library_ms"],
+        "per": ("launches: the main path's mel extraction of three batches (16 x 10 s, "
+                "16 x 8192, 16 x 8305 samples at 22,050 Hz); times and bound: the 16 x 10 s "
+                "batch, fp32 (library: method='auto', torch.fft.rfft; bound: the work a log-mel "
+                "needs, a real FFT per frame and the filterbank's nonzeros, while "
+                "rows.dense_dft_bound_ms bounds the kernel's dense-DFT algorithm only); "
+                "max_abs_err: the three batches (fp32 only: the op takes fp32); its backward "
+                "is the plain composition"),
+        "rows": mel["rows"],
+    })
+    return kernels
 
 
 def main() -> int:
@@ -981,7 +1618,9 @@ def main() -> int:
     del msd
     torch.cuda.empty_cache()
 
-    # 6. V1 train steps through the port's main training path
+    # 6. V1 train steps through the port's main training path (its pools
+    # held against the CPU first)
+    pool_reading(dev)
     train = train_phase(h, dev)
     torch.cuda.empty_cache()
 
@@ -998,6 +1637,25 @@ def main() -> int:
 
     # 9. production distillation train steps through the port's main path
     distill = distill_phase(distill_cfg, dev)
+    torch.cuda.empty_cache()
+
+    # 10. the per-layer conv kernels against their plain versions: every V1
+    # MSD layer, every distinct distill conv geometry
+    msd = MultiScaleDiscriminator(generator=torch.Generator().manual_seed(SEED)).to(dev)
+    per_layer = msd_conv_phase(msd, distill_cfg, dev)
+    del msd
+    torch.cuda.empty_cache()
+
+    # 11. V1 train steps with msd_conv_impl='pallas'
+    train_b5 = train_phase(h, dev, msd_impl="pallas")
+    torch.cuda.empty_cache()
+
+    # 12. production distillation train steps with conv_impl='pallas'
+    distill_b5 = distill_phase(distill_cfg, dev, conv_impl="pallas")
+    torch.cuda.empty_cache()
+
+    # 13. mel extraction through the fused log-mel kernel
+    mel = logmel_phase(h, dev)
     torch.cuda.empty_cache()
 
     bound_ms = max(request["ops"] / H100_BF16_FLOPS, request["bytes"] / H100_BYTES_PER_S) * 1e3
@@ -1075,6 +1733,13 @@ def main() -> int:
         }
         sg_ms += entry["ms"]
         kernels.append(entry)
+    kernels += per_layer_and_mel_entries(per_layer, train_b5, distill_b5, mel)
+    b5_ms = sum(e["ms"] for e in kernels if e["name"].startswith("msd_conv1d_lrelu."))
+    print(f"V1 train step with msd_conv_impl='pallas' {train_b5['step_ms']:.3f} ms, of which the "
+          f"per-layer conv kernels {b5_ms:.3f} ms ({100 * b5_ms / train_b5['step_ms']:.1f}%, "
+          f"from per-pass times); distill "
+          f"step with conv_impl='pallas' {distill_b5['step_ms']:.3f} ms; "
+          f"{per_layer['distill_geoms']} distinct distill conv geometries held")
     print(f"distill step {distill['step_ms']:.3f} ms; one {SG_ELEMENTS}-element discriminator "
           f"traversal's stream-graph passes {sg_ms:.3f} ms; profiled step "
           f"{json.dumps(distill['share'])}")

@@ -7,7 +7,9 @@ find; the JAX package stays the reference the port is tested against.
 - ``hifigan_tpu_torch.data``   — the vocoder training dataset
 - ``hifigan_tpu_torch.models`` — Generator V1/V2/V3, MPD/MSD discriminators,
   losses, normed conv layers, the low-latency fused-stage vocoder
-- ``hifigan_tpu_torch.ops``    — conv primitives and the CUDA kernels
+- ``hifigan_tpu_torch.ops``    — conv primitives and the CUDA kernels' wrappers
+  (``fused_tail_stage``, ``fused_conv_stack``, ``fused_stream_graph``,
+  ``msd_conv1d_lrelu``, ``fused_log_mel``)
 - ``hifigan_tpu_torch.train``  — the GAN trainer, ``g_*``/``do_*`` checkpoints,
   the distillation weight carrier
 - ``hifigan_tpu_torch.dsl``    — the model-builder DSL and its interpreter

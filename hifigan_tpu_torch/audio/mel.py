@@ -4,6 +4,8 @@ Reflect-pad the waveform by (n_fft - hop)/2 on both sides, ``center=False``
 STFT at power 2 (the fork's torchaudio convention) or 1 (upstream
 hifi-gan), an HTK or Slaney mel filterbank, then log(clamp(x, 1e-5)).
 The filterbank is the JAX package's numpy construction, copied.
+``MelConfig(method='pallas')`` takes the fused log-mel kernel
+(:mod:`hifigan_tpu_torch.ops.logmel`) for the geometries it supports.
 """
 
 from __future__ import annotations
@@ -95,9 +97,11 @@ class MelConfig:
     mel_scale: str = "htk"
     norm: str | None = None
     center: bool = False
-    # 'pallas' (the fused log-mel kernel) is not ported yet; every other
-    # value takes torch.fft.rfft (the JAX package's 'matmul' and 'fft' are
-    # TPU lowering choices with the same numerics)
+    # 'pallas' runs the fused log-mel kernel (ops/logmel.py: CUDA for a CUDA
+    # tensor, its plain matmul version for a CPU one) where
+    # supports_fused_log_mel accepts the geometry, and torch.fft.rfft
+    # otherwise; every other value takes torch.fft.rfft (the JAX package's
+    # 'matmul' and 'fft' are TPU lowering choices with the same numerics)
     method: str = "auto"
 
     @classmethod
@@ -110,11 +114,15 @@ class MelConfig:
 def _mel(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     if cfg.center:
         raise NotImplementedError("center=True is never used by the reference pipeline")
-    if cfg.method == "pallas":
-        raise NotImplementedError("method='pallas' (the fused log-mel kernel) is not ported yet")
     squeeze = y.dim() == 1
     if squeeze:
         y = y[None]
+    if cfg.method == "pallas":
+        from hifigan_tpu_torch.ops.logmel import fused_log_mel, supports_fused_log_mel
+
+        if supports_fused_log_mel(cfg):  # the JAX package's geometry gate
+            mel = fused_log_mel(y, cfg)
+            return mel[0] if squeeze else mel
     pad = int((cfg.n_fft - cfg.hop_size) / 2)
     y = F.pad(y.float()[:, None], (pad, pad), mode="reflect")[:, 0]
     spec = stft_power(y, cfg.n_fft, cfg.hop_size, cfg.win_size, power=cfg.power)

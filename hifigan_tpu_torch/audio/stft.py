@@ -1,9 +1,10 @@
 """STFT building blocks (PyTorch port of ``hifigan_tpu/audio/stft.py``).
 
-One spectrogram path, ``torch.fft.rfft``, following torch.stft conventions
+The spectrogram path is ``torch.fft.rfft``, following torch.stft conventions
 (periodic Hann, window centre-padded to n_fft, onesided, ``center=False``
-framing). The JAX package's DFT-as-matmul form is a TPU lowering choice with
-the same numerics and is not carried over.
+framing). The DFT as a product with a real basis (:func:`_rdft_basis`,
+:func:`windowed_rdft_basis`) serves the stream-graph mel branch and the
+fused log-mel kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ def _rdft_basis(n_fft: int, win_size: int) -> np.ndarray:
     k = np.arange(n_bins, dtype=np.float64)
     phase = 2.0 * np.pi * np.outer(t, k) / n_fft
     return np.concatenate([np.cos(phase), -np.sin(phase)], axis=1).astype(np.float32)
+
+
+def windowed_rdft_basis(n_fft: int, win_size: int) -> np.ndarray:
+    """The Hann-windowed real-DFT basis (win_size, 2 * (n_fft//2 + 1)), fp32:
+    frames @ basis = [Re | Im] of the windowed onesided DFT (the fused
+    log-mel kernel's table, as ``hifigan_tpu/ops/pallas/logmel.py:90-91``
+    builds it)."""
+    return (_rdft_basis(n_fft, win_size) * hann_window(win_size)[:, None]).astype(np.float32)
 
 
 def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:

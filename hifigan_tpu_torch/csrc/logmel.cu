@@ -1,0 +1,181 @@
+// Fused log-mel spectrogram forward for Hopper (sm_90a), plain C interface
+// for ctypes.
+//
+// Replaces hifigan_tpu/ops/pallas/logmel.py::fused_log_mel (:135; the
+// kernel _kernel :43, Pallas call :101). Driven from
+// hifigan_tpu_torch/ops/logmel.py, which reflect-pads and crops the signal
+// (XLA ops outside the Pallas call in JAX). Over the padded signal
+// (B, (F - 1)*hop + n_fft) it computes, per frame f,
+//
+//   frame = sig[f*hop : f*hop + n_fft]
+//   spec  = frame @ basis          basis (n_fft, 2*n_bins) = [cos | -sin] * Hann
+//   power = re^2 + im^2            (n_bins,)
+//   mel   = power @ fb             fb (n_bins, mels)
+//   out[b, m, f] = log(max(mel[m], 1e-5))
+//
+// all in fp32 FMA (no TF32: the JAX kernel runs its matmuls at HIGHEST, and
+// the error near the log clip needs full fp32). No backward kernel: the
+// wrapper's VJP recomputes through the plain matmul composition, as the JAX
+// one does.
+//
+// What bounds it: arithmetic. At the V1 geometry (n_fft 1024, hop 256, 80
+// mels) a frame is ~2.18 MFLOP against ~1 KB of new signal and 320 B of
+// output; the 4.2 MB basis and 164 KB filterbank stay in L2.
+//
+// Design (simple and correct first): one 256-thread block per (utterance,
+// tile of kTileF frames).
+// - The tile's (kTileF - 1)*hop + n_fft contiguous samples are staged in
+//   shared memory once; frames are read from there directly (the TPU
+//   kernel's 4 hop-block partial matmuls and 8-row DMA alignment are TPU
+//   devices).
+// - The DFT walks the bins in chunks of kChunk: the basis rows stream
+//   through shared memory kBK at a time (the re and im columns of the
+//   chunk side by side), each thread holding 4 frames x 4 bins of re and
+//   im in registers; the chunk's power goes to shared memory. Bins past the
+//   last whole chunk (the Nyquist bin at n_fft 1024) are summed by warps
+//   with a shuffle reduction.
+// - The mel product then reads the tile's power from shared memory, one
+//   (frame, mel) output a thread at a time, and writes the (mels, F)
+//   output with frames on neighbouring lanes.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileF = 16;  // frames per block
+constexpr int kChunk = 256;  // bins per DFT chunk: 64 threads x 4 bins
+constexpr int kBK = 16;      // basis rows per shared-memory step
+constexpr float kClip = 1e-5f;
+
+// Shared memory: the signal tile, the basis step (re | im of a chunk), the power tile.
+__host__ __device__ inline int sig_floats(int hop, int n_fft) { return (kTileF - 1) * hop + n_fft; }
+constexpr int kBasisFloats = kBK * 2 * kChunk;
+
+__global__ void __launch_bounds__(kThreads)
+    logmel_kernel(const float* __restrict__ sig, const float* __restrict__ basis,
+                  const float* __restrict__ fb, float* __restrict__ out, int F, int L, int hop,
+                  int n_fft, int n_bins, int mels) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_sig = sig_floats(hop, n_fft);
+  float* sig_s = smem;
+  float* basis_s = smem + ((n_sig + 3) & ~3);
+  float* power_s = basis_s + kBasisFloats;  // [bin][kTileF]
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, f0 = blockIdx.x * kTileF;
+  const int nf = min(kTileF, F - f0);
+  const int ncol = 2 * n_bins;
+
+  // stage the tile's samples (zeros past the signal's end feed frames past F only)
+  const float* row = sig + (long)b * L + (long)f0 * hop;
+  const int avail = L - f0 * hop;
+  for (int i = tid; i < n_sig; i += kThreads) sig_s[i] = i < avail ? row[i] : 0.f;
+
+  // --- DFT over whole chunks: thread (ty, tx): frames ty*4 + i, bins tx*4 + j ---
+  const int tx = tid % 64, ty = tid / 64;
+  const int full = (n_bins / kChunk) * kChunk;
+  for (int c0 = 0; c0 < full; c0 += kChunk) {
+    float re[4][4], im[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
+    for (int n0 = 0; n0 < n_fft; n0 += kBK) {
+      __syncthreads();  // the previous step's basis (and, first, the signal) is done with
+      for (int e = tid; e < kBasisFloats; e += kThreads) {
+        const int r = e / (2 * kChunk), cc = e % (2 * kChunk), n = n0 + r;
+        const int col = cc < kChunk ? c0 + cc : n_bins + c0 + cc - kChunk;
+        basis_s[e] = n < n_fft ? __ldg(basis + (long)n * ncol + col) : 0.f;
+      }
+      __syncthreads();
+      const int steps = min(kBK, n_fft - n0);
+      for (int r = 0; r < steps; ++r) {
+        const float4 br = *reinterpret_cast<const float4*>(basis_s + r * 2 * kChunk + tx * 4);
+        const float4 bi =
+            *reinterpret_cast<const float4*>(basis_s + r * 2 * kChunk + kChunk + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a = sig_s[(ty * 4 + i) * hop + n0 + r];
+          re[i][0] = fmaf(a, br.x, re[i][0]);
+          re[i][1] = fmaf(a, br.y, re[i][1]);
+          re[i][2] = fmaf(a, br.z, re[i][2]);
+          re[i][3] = fmaf(a, br.w, re[i][3]);
+          im[i][0] = fmaf(a, bi.x, im[i][0]);
+          im[i][1] = fmaf(a, bi.y, im[i][1]);
+          im[i][2] = fmaf(a, bi.z, im[i][2]);
+          im[i][3] = fmaf(a, bi.w, im[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        power_s[(c0 + tx * 4 + j) * kTileF + ty * 4 + i] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
+  }
+  __syncthreads();
+
+  // --- bins past the whole chunks: warp w sums frames w and w + 8 over lanes ---
+  const int warp = tid / 32, lane = tid % 32;
+  for (int k = full; k < n_bins; ++k) {
+    for (int f = warp; f < kTileF; f += kThreads / 32) {
+      float sr = 0.f, si = 0.f;
+      for (int n = lane; n < n_fft; n += 32) {
+        const float a = sig_s[f * hop + n];
+        sr = fmaf(a, __ldg(basis + (long)n * ncol + k), sr);
+        si = fmaf(a, __ldg(basis + (long)n * ncol + n_bins + k), si);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        sr += __shfl_xor_sync(0xffffffffu, sr, o);
+        si += __shfl_xor_sync(0xffffffffu, si, o);
+      }
+      if (lane == 0) power_s[k * kTileF + f] = sr * sr + si * si;
+    }
+  }
+  __syncthreads();
+
+  // --- mel product and log: thread (mg, f), mels mg, mg + 16, ... ---
+  const int f = tid % kTileF, mg = tid / kTileF;
+  if (f < nf) {
+    for (int m = mg; m < mels; m += kThreads / kTileF) {
+      float acc = 0.f;
+      for (int k = 0; k < n_bins; ++k) acc = fmaf(power_s[k * kTileF + f], __ldg(fb + (long)k * mels + m), acc);
+      out[((long)b * mels + m) * F + f0 + f] = logf(fmaxf(acc, kClip));
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// sig (batch, L) fp32 with L = (F - 1)*hop + n_fft, basis (n_fft, 2*n_bins),
+// fb (n_bins, mels), out (batch, mels, F), all contiguous fp32. Returns the
+// cudaError_t of the launch (invalid value for a geometry the kernel does
+// not take or shared memory beyond the card's).
+int hifigan_logmel(const float* sig, const float* basis, const float* fb, float* out, int batch,
+                   int F, int L, int hop, int n_fft, int n_bins, int mels, void* stream) {
+  if (batch < 1 || F < 1 || hop < 1 || n_fft < 1 || n_bins < 1 || mels < 1 ||
+      L < (F - 1) * hop + n_fft || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      (size_t)(((sig_floats(hop, n_fft) + 3) & ~3) + kBasisFloats + n_bins * kTileF) * sizeof(float);
+  int dev = 0, max_optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > (size_t)max_optin) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((F + kTileF - 1) / kTileF, batch);
+  logmel_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      sig, basis, fb, out, F, L, hop, n_fft, n_bins, mels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -19,10 +19,18 @@ discriminator member (``pfmap(all_in_one_discriminator)``) through
 :mod:`hifigan_tpu_torch.dsl.fused_member` on every device, with a
 homogeneous ensemble's members in one call (the stream-graph kernel for CUDA
 tensors, its plain version for CPU tensors); ``'interpret'`` evaluates node
-by node. A member the pattern matcher rejects is interpreted. The other
-impl switches of the JAX module wait: ``stream_impl`` other than
-``'auto'``/``'interpret'`` (the stream-fusion pass) and ``conv_impl`` other
-than ``'auto'`` (kernel B5) raise.
+by node. A member the pattern matcher rejects is interpreted.
+
+``conv_impl`` (the JAX module's values) picks how ``conv`` / ``conv_rech``
+nodes run (:meth:`ConfigurableModule._conv_backend`): ``'pallas'`` through
+:func:`hifigan_tpu_torch.ops.msd_conv.msd_conv1d_lrelu` at slope 1.0 (the
+CUDA kernels for CUDA tensors), except a node with stride > 1 and dilation
+> 1, which stays on the direct conv; ``'pallas_interpret'`` (the JAX
+test mode) is an alias of ``'pallas'``: the op itself takes its plain
+version for CPU tensors; ``'auto'``, ``'xla'`` and ``'folded'`` (the JAX time-fold lowering, the
+same function) the direct conv. Ensemble members inherit it. The
+stream-fusion pass waits: ``stream_impl`` other than
+``'auto'``/``'interpret'`` raises.
 
 Nodes ``conv2``, ``trans``, ``trans_shuffle``, ``trans2`` and ``up`` with
 linear interpolation raise ``NotImplementedError``: no shipped config uses
@@ -42,9 +50,11 @@ import torch.nn.functional as F
 from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
 from hifigan_tpu_torch.dsl.normalize import RLIST, SEQ, is_normalized, normalize_config
 from hifigan_tpu_torch.models.layers import NormConv1d
+from hifigan_tpu_torch.ops import msd_conv
 from hifigan_tpu_torch.ops.conv import avg_pool1d, conv1d, leaky_relu
 
 Feats = list
+CONV_IMPLS = ("auto", "xla", "folded", "pallas", "pallas_interpret")
 
 
 def dsl_padding(kernel: int, stride: int = 1, dilation: int = 1) -> int:
@@ -109,9 +119,8 @@ class ConfigurableModule(nn.Module):
         if stream_impl not in ("auto", "interpret"):
             raise NotImplementedError(f"stream_impl={stream_impl!r}: the stream-fusion pass is "
                                       "not ported yet")
-        if conv_impl != "auto":
-            raise NotImplementedError(f"conv_impl={conv_impl!r}: the per-conv kernels (B5) are "
-                                      "not ported yet")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {conv_impl!r}; expected one of {CONV_IMPLS}")
         if member_impl not in ("auto", "fused", "interpret"):
             raise ValueError(f"unknown member_impl {member_impl!r}")
         self.config = config if is_normalized(config) else normalize_config(config)
@@ -120,6 +129,7 @@ class ConfigurableModule(nn.Module):
         self.compute_dtype = (getattr(torch, compute_dtype) if isinstance(compute_dtype, str)
                               else compute_dtype)
         self.member_impl = member_impl
+        self.conv_impl = conv_impl
         self.weight_grads = weight_grads
         self.convs = nn.ModuleDict()
         self.ensembles = nn.ModuleDict()
@@ -133,7 +143,8 @@ class ConfigurableModule(nn.Module):
     def _member_kwargs(self) -> dict:
         return dict(mel_sampling_rate_override=self.mel_sampling_rate_override,
                     update_spectral=self.update_spectral, compute_dtype=self.compute_dtype,
-                    member_impl=self.member_impl, weight_grads=self.weight_grads)
+                    member_impl=self.member_impl, conv_impl=self.conv_impl,
+                    weight_grads=self.weight_grads)
 
     def build(self, *example, generator: torch.Generator | None = None) -> "ConfigurableModule":
         """Create every parameter by evaluating the config once on ``example``
@@ -204,11 +215,22 @@ class ConfigurableModule(nn.Module):
             feats = feats + [(tags, y)]
         return y, feats
 
+    def _conv_backend(self, stride: int, dilation: int) -> str:
+        """'kernel' (msd_conv1d_lrelu) or 'direct' (conv1d) for a 1-D conv
+        node, as the JAX module's ``_conv_backend`` resolves ``conv_impl``."""
+        if self.conv_impl in ("pallas", "pallas_interpret") and (stride == 1 or dilation == 1):
+            return "kernel"
+        return "direct"
+
     def _conv_node(self, p, x, name: str):
         chin, chout, k, s, d, g, init, norm = _conv_params(*p)
         mod = self._conv_module(name, x.shape[-1], chout, k, s, d, g, init, norm)
         kern, bias = self.conv_weights(name, x.dtype)
-        return conv1d(x, kern, bias, stride=s, padding=mod.padding, dilation=d, groups=g)
+        backend = self._conv_backend(s, d)
+        if backend == "direct":
+            return conv1d(x, kern, bias, stride=s, padding=mod.padding, dilation=d, groups=g)
+        return msd_conv.msd_conv1d_lrelu(x, kern, bias, stride=s, padding=mod.padding,
+                                         dilation=d, groups=g)
 
     def _node(self, name: str, p, args: tuple, path: str) -> tuple[Any, Feats]:
         x = args[0]
@@ -259,9 +281,8 @@ class ConfigurableModule(nn.Module):
             if s != 1:
                 raise NotImplementedError("DSL node 'poold' with stride != 1 is not ported")
             b, t, c = x.shape
-            y = x.reshape(b, t // d, d * c).transpose(1, 2)
-            y = F.avg_pool1d(y, k, 1, dsl_padding(k, s), count_include_pad=True)
-            return y.transpose(1, 2).reshape(b, -1, c), feats
+            y = avg_pool1d(x.reshape(b, t // d, d * c), k, 1, padding=dsl_padding(k, s))
+            return y.reshape(b, -1, c), feats
 
         if name == "roll":
             period = int(p[0]) if isinstance(p, (tuple, list)) else int(p)

@@ -23,12 +23,17 @@ dtype of the convs (``disc_compute_dtype``); parameters stay float32.
 - ``'fused_stack'``: conv_0 in PyTorch, layers 1-6 and conv_post through
   :func:`hifigan_tpu_torch.ops.conv_stack.fused_conv_stack` (the CUDA
   kernels on a CUDA tensor);
+- ``'pallas'``: every layer, conv_0 and conv_post included, through
+  :func:`hifigan_tpu_torch.ops.msd_conv.msd_conv1d_lrelu` with the leaky
+  ReLU fused (``NormConv1d.fused_nwc``; the CUDA kernels on a CUDA tensor);
+  the feature maps are the same post-activation tensors as ``'xla'``'s;
 - ``'auto'``: ``'fused_stack'`` on CUDA, ``'xla'`` on the CPU.
 
-``'fused_zoned'`` (a TPU lane layout whose feature maps change the
-feature-loss divisor) and ``'pallas'`` (the per-layer kernel, not ported
-yet) raise, as does ``fused=True`` (one 2B pass of real and fake, which the
-JAX package keeps off as a measured pessimization).
+The parameters do not depend on ``conv_impl``: a ``do_*`` written under one
+loads under another. ``'fused_zoned'`` (a TPU lane layout whose feature maps
+change the feature-loss divisor) raises, as does ``fused=True`` (one 2B pass
+of real and fake, which the JAX package keeps off as a measured
+pessimization).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from hifigan_tpu_torch.models.layers import NormConv1d, NormConv2d
 from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, avg_pool1d, conv1d, leaky_relu, reflect_pad_1d
 from hifigan_tpu_torch.ops.conv_stack import LayerSpec, fused_conv_stack
 
-CONV_IMPLS = ("auto", "xla", "fused_stack")
+CONV_IMPLS = ("auto", "xla", "fused_stack", "pallas")
 
 
 def _no_fused(fused: bool) -> None:
@@ -116,10 +121,9 @@ class DiscriminatorS(nn.Module):
                  dtype: torch.dtype | None = None, conv_impl: str = "auto",
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
-        if conv_impl in ("fused_zoned", "pallas"):
-            raise NotImplementedError(
-                f"conv_impl={conv_impl!r} is not ported: 'fused_zoned' is a TPU lane layout, "
-                "'pallas' waits for the per-layer MSD kernel")
+        if conv_impl == "fused_zoned":
+            raise NotImplementedError("conv_impl='fused_zoned' is not ported: it is a TPU lane "
+                                      "layout whose feature maps change the loss divisor")
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {conv_impl!r}; expected one of {CONV_IMPLS}")
         norm = "spectral" if use_spectral_norm else "weight"
@@ -145,16 +149,29 @@ class DiscriminatorS(nn.Module):
                 pair: torch.Tensor | None = None):
         """x (B, T) -> (logits (B, -1), fmaps); with ``pair`` (a second
         waveform of x's shape) -> ((logits, fmaps), (logits2, fmaps2)), the
-        weights (and the spectral power iteration) computed once for both.
+        weights (and the spectral power iteration) computed once for both
+        (once per input under ``'pallas'``, as each JAX conv call does).
         ``weight_grads=False`` declares the weights constant in this call:
         the fused path then does no weight-gradient work."""
         b = x.shape[0]
         xs = [x[..., None]] if pair is None else [x[..., None], pair[..., None]]
         dtype = self.dtype or x.dtype
+        impl = self.resolve_impl(x)
+        if impl == "pallas":
+            results = []
+            for h in xs:
+                fmap = []
+                for conv in self.convs:
+                    h = conv.fused_nwc(h, LRELU_SLOPE, update_spectral, dtype)
+                    fmap.append(h)
+                h = self.conv_post.fused_nwc(h, 1.0, update_spectral, dtype)
+                fmap.append(h)
+                results.append((h.reshape(b, -1), fmap))
+            return results[0] if pair is None else tuple(results)
         layers = [conv.kernel_nwc(update_spectral, dtype)
                   for conv in [*self.convs, self.conv_post]]
         specs = [*self.specs, (1, 3, 1, 1, 1)]
-        if self.resolve_impl(x) == "fused_stack":
+        if impl == "fused_stack":
             (k0, b0), (_, _, _, _, p0) = layers[0], specs[0]
             hs = [leaky_relu(conv1d(h.to(dtype), k0, b0, padding=p0), LRELU_SLOPE).contiguous()
                   for h in xs]

@@ -20,7 +20,8 @@ Init is torch's: kaiming-uniform ``v`` (bound 1/sqrt(fan_in)), ``g = ||v||``,
 uniform bias, a normal ``u``; ``norm='none'`` with ``init_std`` draws the
 weight from N(0, init_std) (the DSL's ``init_weights``, which only reaches
 un-normed convs); draws come from the caller's ``torch.Generator``. ``NormConv1d.forward`` takes torch's (N, C, W) layout;
-``NormConv1d.kernel_nwc`` gives the kernel in the JAX layout and
+``NormConv1d.kernel_nwc`` gives the kernel in the JAX layout,
+``NormConv1d.fused_nwc`` runs conv + bias + leaky ReLU in one ``msd_conv1d_lrelu`` call and
 ``NormConv2d.nhwc`` runs on channels-last (N, H, W, C). Every conv casts
 its input, kernel and bias to the input's dtype (or to ``dtype`` where
 given), as the JAX modules' ``_cast`` does.
@@ -34,6 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hifigan_tpu_torch.ops import msd_conv
 from hifigan_tpu_torch.ops.conv import conv2d
 
 
@@ -104,6 +106,20 @@ class NormConv1d(_NormConvBase):
         return F.conv1d(x, self.effective_weight().to(x.dtype), self.bias.to(x.dtype),
                         stride=self.stride, padding=self.padding, dilation=self.dilation,
                         groups=self.groups)
+
+    def fused_nwc(self, x: torch.Tensor, slope: float = 1.0, update_spectral: bool = False,
+                  dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(N, W, C) -> (N, W', O) in ``dtype`` (default: x's): the conv, its
+        bias and a leaky ReLU at ``slope`` (1.0: none) in one
+        :func:`~hifigan_tpu_torch.ops.msd_conv.msd_conv1d_lrelu` call on the
+        effective kernel and bias (the JAX module's
+        ``fused_impl='pallas_msd'``). The norm stays outside the op, so its
+        chain differentiates through PyTorch."""
+        dtype = dtype or x.dtype
+        kern, bias = self.kernel_nwc(update_spectral, dtype)
+        return msd_conv.msd_conv1d_lrelu(x.to(dtype), kern, bias, stride=self.stride,
+                                         padding=self.padding, dilation=self.dilation,
+                                         groups=self.groups, slope=slope)
 
     def kernel_nwc(self, update_spectral: bool = False,
                    dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:

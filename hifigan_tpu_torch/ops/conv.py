@@ -91,12 +91,15 @@ def conv2d(
     return y.permute(0, 2, 3, 1)
 
 
-def avg_pool1d(x: torch.Tensor, kernel_size: int, stride: int, padding: int = 0,
-               count_include_pad: bool = True) -> torch.Tensor:
-    """torch.nn.AvgPool1d over (N, W, C)."""
-    y = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
-                     count_include_pad=count_include_pad)
-    return y.transpose(1, 2)
+def avg_pool1d(x: torch.Tensor, kernel_size: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """torch.nn.AvgPool1d (count_include_pad=True) over (N, W, C): each
+    window of the zero-padded input summed in fp32 order and divided by
+    ``kernel_size``. Not F.avg_pool1d: on CUDA its backward returns wrong
+    input gradients for an input whose memory is channels-last or, with one
+    channel, ambiguous (a per-layer conv kernel's output, the MSD's
+    waveform), which the autograd of a window view and a sum does not."""
+    xp = F.pad(x, (0, 0, padding, padding))
+    return xp.unfold(1, kernel_size, stride).sum(-1) / kernel_size
 
 
 def reflect_pad_1d(x: torch.Tensor, pad: tuple[int, int], axis: int = 1) -> torch.Tensor:

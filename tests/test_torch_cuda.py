@@ -246,3 +246,113 @@ def test_stream_graph_wrapper_rejects_bad_inputs(card):
         sg.fused_stream_graph(seg, [x.half()], [torch.zeros(1, 3, 1, 2, device=card)], [None])
     with pytest.raises(ValueError):
         sg.fused_stream_graph(seg, [x], [torch.zeros(1, 3, 1, 2)], [None])
+
+
+# (Cin, Cout, K, stride, dilation, groups, padding, slope, T): MSD-shaped layers
+# (conv_0's one input channel, strided grouped, conv_post's one output), a
+# dilated classifier conv, asymmetric padding at stride 3
+MSD_CASES = [(1, 32, 15, 1, 1, 1, 7, 0.1, 300), (32, 64, 41, 2, 1, 4, 20, 0.1, 301),
+             (64, 64, 41, 4, 1, 16, 20, 0.1, 150), (64, 1, 3, 1, 1, 1, 1, 1.0, 40),
+             (24, 20, 3, 1, 9, 1, 9, 0.1, 77), (12, 18, 7, 3, 1, 3, (4, 1), 0.2, 101)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MSD_CASES, ids=[f"c{i}" for i in range(len(MSD_CASES))])
+def test_msd_conv_kernels_match_plain(card, no_tf32, case, dtype):
+    from hifigan_tpu_torch.ops import msd_conv as tmsd
+
+    ci, co, k, s, d, g, p, slope, t = case
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = (torch.randn((3, t, ci), device=card, generator=gen) * 0.5).to(dtype)
+    kern = torch.randn((k, ci // g, co), device=card, generator=gen) / (k * ci // g) ** 0.5
+    bias = torch.randn((co,), device=card, generator=gen) * 0.1
+    kw = dict(stride=s, padding=p, dilation=d, groups=g, slope=slope)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -4
+    before = tmsd.launches()
+    xk = x.clone().requires_grad_()
+    y = tmsd.msd_conv1d_lrelu(xk, kern, bias, **kw)
+    torch.cuda.synchronize()
+    assert tmsd.launches()["fwd"] == before["fwd"] + 1
+    ref = tmsd.msd_conv1d_lrelu_reference(x, kern, bias, **kw)
+    assert y.shape == ref.shape and y.dtype == ref.dtype == dtype
+    assert (y.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+    dy = torch.randn(y.shape, device=card, generator=gen).to(dtype)
+    (dx,) = torch.autograd.grad(y, [xk], dy)
+    torch.cuda.synchronize()
+    assert tmsd.launches()["bwd_dx"] == before["bwd_dx"] + 1
+    want, _, _ = tmsd.msd_conv1d_lrelu_backward_reference(x, kern, y.detach(), dy, **kw)
+    assert dx.dtype == dtype
+    assert (dx.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+
+
+def test_msd_conv_skips_dx_for_an_input_without_grad(card):
+    from hifigan_tpu_torch.ops import msd_conv as tmsd
+
+    kern = torch.randn((5, 8, 16), device=card, requires_grad=True)
+    before = tmsd.launches()
+    y = tmsd.msd_conv1d_lrelu(torch.randn((2, 40, 8), device=card), kern, None, padding=2,
+                              slope=0.1)
+    (dk,) = torch.autograd.grad(y.sum(), [kern])
+    assert tmsd.launches() == {"fwd": before["fwd"] + 1, "bwd_dx": before["bwd_dx"]}
+    assert dk.shape == kern.shape and bool(dk.any())
+
+
+def test_msd_conv_wrapper_rejects_bad_inputs(card):
+    from hifigan_tpu_torch.ops import msd_conv as tmsd
+
+    x, kern = torch.zeros((1, 32, 8), device=card), torch.zeros((3, 4, 8), device=card)
+    with pytest.raises(TypeError):
+        tmsd.msd_conv1d_lrelu(x.half(), kern, None, groups=2)  # dtype
+    with pytest.raises(ValueError):
+        tmsd.msd_conv1d_lrelu(x, kern, None)  # kernel does not fit 1 group
+    with pytest.raises(ValueError):
+        tmsd.msd_conv1d_lrelu(x, kern.cpu(), None, groups=2)  # device
+    with pytest.raises(ValueError):
+        tmsd.msd_conv1d_lrelu(x, kern, None, groups=2, stride=2, dilation=2)  # both
+
+
+@pytest.mark.parametrize("t", [8192, 8192 + 113])
+def test_log_mel_kernel_matches_plain(card, no_tf32, t):
+    from hifigan_tpu_torch.audio.mel import MelConfig
+    from hifigan_tpu_torch.ops import logmel as tlogmel
+
+    cfg = MelConfig()
+    y = (torch.randn((3, t), device=card, generator=torch.Generator(device=card).manual_seed(t))
+         * 0.3).clamp(-1, 1)
+    launches = tlogmel.LAUNCHES
+    yk = y.clone().requires_grad_()
+    got = tlogmel.fused_log_mel(yk, cfg)
+    torch.cuda.synchronize()
+    assert tlogmel.LAUNCHES == launches + 1
+    yp = y.clone().requires_grad_()
+    want = tlogmel.fused_log_mel_reference(yp, cfg)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
+    (gk,) = torch.autograd.grad(torch.sin(got).sum(), yk)
+    (gp,) = torch.autograd.grad(torch.sin(want).sum(), yp)
+    assert (gk - gp).abs().max().item() <= 1e-4 * gp.abs().max().item()
+
+
+@pytest.mark.parametrize("n,t,c,k,s,p", [(6, 14560, 12, 31, 1, 15), (4, 8192, 1, 4, 2, 2),
+                                         (2, 64, 8, 4, 2, 2)])
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_avg_pool1d_gradient_matches_the_cpu(card, n, t, c, k, s, p, channels_first):
+    """The pool's input gradient on the card equals the CPU's for a
+    contiguous (N, W, C) input (a per-layer conv kernel's output), one with
+    channels-first memory (a cuDNN conv's output) and one channel (the MSD's
+    waveform), where F.avg_pool1d's CUDA backward is wrong for the first and
+    the last."""
+    from hifigan_tpu_torch.ops.conv import avg_pool1d
+
+    g = torch.Generator().manual_seed(t + c)
+    x = torch.randn((n, t, c), generator=g)
+    if channels_first:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    xc, xd = x.clone().requires_grad_(), x.to(card).requires_grad_()
+    want = avg_pool1d(xc, k, s, padding=p)
+    got = avg_pool1d(xd, k, s, padding=p)
+    dy = torch.randn(want.shape, generator=g)
+    (gw,) = torch.autograd.grad(want, xc, dy)
+    (gg,) = torch.autograd.grad(got, xd, dy.to(card))
+    assert (got.cpu() - want).abs().max().item() <= 1e-6
+    assert (gg.cpu() - gw).abs().max().item() <= 1e-6

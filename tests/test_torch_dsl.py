@@ -106,10 +106,30 @@ def test_unported_nodes_raise(cfg):
         ConfigurableModule(cfg).build(torch.zeros(1, 8, 2))
 
 
-@pytest.mark.parametrize("impl", [{"stream_impl": "fused"}, {"conv_impl": "pallas"}])
+@pytest.mark.parametrize("impl", [{"stream_impl": "fused"}, {"stream_impl": "fused_interpret"}])
 def test_impls_that_wait_raise(impl):
     with pytest.raises(NotImplementedError):
         ConfigurableModule(("tanh",), **impl)
+
+
+def test_conv_impls_route_conv_nodes():
+    """Every JAX ``conv_impl`` value is taken; 'pallas' sends conv and
+    conv_rech nodes to the per-layer conv op except stride > 1 with
+    dilation > 1, 'pallas_interpret' as an alias of 'pallas' (the op takes
+    its plain version for CPU tensors), the others to the direct conv;
+    ensemble members inherit the value."""
+    for impl in ("auto", "xla", "folded", "pallas", "pallas_interpret"):
+        assert ConfigurableModule(("tanh",), conv_impl=impl).conv_impl == impl
+    with pytest.raises(ValueError):
+        ConfigurableModule(("tanh",), conv_impl="cudnn")
+    m = ConfigurableModule(("tanh",), conv_impl="pallas")
+    assert [m._conv_backend(s, d) for s, d in ((1, 1), (2, 1), (1, 3), (2, 3))] == [
+        "kernel", "kernel", "kernel", "direct"]
+    assert ConfigurableModule(("tanh",), conv_impl="pallas_interpret")._conv_backend(2, 1) == "kernel"
+    assert ConfigurableModule(("tanh",), conv_impl="folded")._conv_backend(1, 1) == "direct"
+    ens = ConfigurableModule(("ensemble", [[CONV]] * 2), conv_impl="pallas")
+    ens.build(torch.zeros(1, 8, 3))
+    assert all(mem.conv_impl == "pallas" for mem in ens.ensembles["m_ens"])
 
 
 def test_ensemble_members_see_sorted_dicts():

@@ -12,6 +12,8 @@ from hifigan_tpu_torch.cli import infer
 from hifigan_tpu_torch.cli import train as cli_train
 from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
 from hifigan_tpu_torch.ops import conv_stack as tstack
+from hifigan_tpu_torch.ops import logmel as tlogmel
+from hifigan_tpu_torch.ops import msd_conv as tmsd
 from hifigan_tpu_torch.ops import resblock_tail as ttail
 from hifigan_tpu_torch.ops import stream_graph as tsg
 from hifigan_tpu_torch.train.vocoder import create_train_state
@@ -49,7 +51,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "hifigan_tpu_torch/data/meldataset.py", "hifigan_tpu_torch/ops/stream_graph.py",
             "hifigan_tpu_torch/dsl/module.py", "hifigan_tpu_torch/dsl/fused_member.py",
             "hifigan_tpu_torch/dsl/static_configs.py", "hifigan_tpu_torch/distill/train.py",
-            "hifigan_tpu_torch/distill/model.py", "hifigan_tpu_torch/distill/losses.py"} <= rel
+            "hifigan_tpu_torch/distill/model.py", "hifigan_tpu_torch/distill/losses.py",
+            "hifigan_tpu_torch/ops/msd_conv.py", "hifigan_tpu_torch/ops/logmel.py",
+            "hifigan_tpu_torch/audio/mel.py", "hifigan_tpu_torch/models/layers.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -169,3 +173,48 @@ def test_distill_entry_points_without_device_raise_when_there_is_no_gpu(monkeypa
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistillModels(cfg, labels, weights)
     assert DistillModels(cfg, labels, weights, device="cpu").device == torch.device("cpu")
+
+
+def test_msd_conv_takes_plain_version_only_for_cpu_tensors(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tmsd, "msd_conv1d_lrelu_reference",
+                        lambda x, k, b, **kw: calls.append(x.device) or x)
+    before = tmsd.launches()
+    tmsd.msd_conv1d_lrelu(torch.zeros(1, 16, 8), torch.zeros(3, 8, 8), None, padding=1)
+    assert calls == [torch.device("cpu")] and tmsd.launches() == before
+    with pytest.raises(ValueError):
+        tmsd.msd_conv1d_lrelu(torch.zeros(1, 16, 8, device="meta"), torch.zeros(3, 8, 8), None)
+    assert len(calls) == 1
+
+
+def test_log_mel_takes_plain_version_only_for_cpu_tensors(monkeypatch):
+    from hifigan_tpu_torch.audio.mel import MelConfig
+
+    calls = []
+    monkeypatch.setattr(tlogmel, "fused_log_mel_reference",
+                        lambda y, cfg: calls.append(y.device) or y)
+    launches = tlogmel.LAUNCHES
+    tlogmel.fused_log_mel(torch.zeros(1, 4096), MelConfig())
+    assert calls == [torch.device("cpu")] and tlogmel.LAUNCHES == launches
+    with pytest.raises(ValueError):
+        tlogmel.fused_log_mel(torch.zeros(1, 4096, device="meta"), MelConfig())
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("fn", [tmsd.msd_conv1d_lrelu, tmsd._MsdConv.forward,
+                                tmsd._MsdConv.backward, tmsd._launch_fwd, tmsd._launch_dx,
+                                tlogmel.fused_log_mel, tlogmel._FusedLogMel.forward,
+                                tlogmel._FusedLogMel.backward, tlogmel._launch])
+def test_msd_conv_and_log_mel_wrappers_have_no_fallback(fn):
+    """The CUDA branch launches or raises: no try/except around a launch."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+def test_the_tpu_lane_layout_still_raises():
+    from hifigan_tpu_torch.models import DiscriminatorS, MultiScaleDiscriminator
+
+    for build in (lambda: DiscriminatorS(width=16, conv_impl="fused_zoned"),
+                  lambda: MultiScaleDiscriminator(width=16, conv_impl="fused_zoned")):
+        with pytest.raises(NotImplementedError, match="fused_zoned"):
+            build()

@@ -57,3 +57,27 @@ def test_leaky_relu_and_weight_norm_match_jax():
         got = tconv.weight_norm_kernel(torch.from_numpy(v), torch.from_numpy(gg), axes).numpy()
         np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-6)
     assert tconv.torch_same_padding(11, 5) == jconv.torch_same_padding(11, 5) == 25
+
+
+@pytest.mark.parametrize("n,t,c,k,s,p", [(2, 64, 8, 31, 1, 15), (3, 65, 1, 4, 2, 2),
+                                         (2, 40, 5, 4, 2, 2)])
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_avg_pool1d_matches_jax_and_torch(n, t, c, k, s, p, channels_first):
+    """The port's pool (a window view and a sum) against the JAX pool
+    (forward) and torch's F.avg_pool1d (forward and input gradient), on a
+    contiguous (N, W, C) input and on one with channels-first memory."""
+    rng = np.random.default_rng(t + c)
+    x = rng.standard_normal((n, t, c)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    if channels_first:
+        xt = xt.transpose(1, 2).contiguous().transpose(1, 2)
+    xt.requires_grad_()
+    got = tconv.avg_pool1d(xt, k, s, padding=p)
+    want = np.asarray(jconv.avg_pool1d(jnp.asarray(x), k, s, padding=p))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6, rtol=1e-6)
+    xr = torch.from_numpy(x.transpose(0, 2, 1).copy()).requires_grad_()
+    ref = torch.nn.functional.avg_pool1d(xr, k, s, p).transpose(1, 2)
+    dy = torch.from_numpy(rng.standard_normal(ref.shape).astype(np.float32))
+    (g,) = torch.autograd.grad(got, xt, dy)
+    (gr,) = torch.autograd.grad(ref, xr, dy)
+    np.testing.assert_allclose(g.numpy(), gr.transpose(1, 2).numpy(), atol=1e-6, rtol=1e-6)
