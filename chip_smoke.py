@@ -9,8 +9,13 @@ into the git-ignored ``build/kernels``), then:
 1. prints the card's name and power limit and the kernels' build time;
 2. holds the fused MRF-stage kernel against its plain PyTorch version at
    every V1 stage, full width, at the lengths of a 256-frame request, B=1,
-   B=4 and B=16 (the batches whose tiles the main path uses): fp32 with TF32 off within 1e-4, bf16 within BF16_REL_TOL of
-   the plain version's peak (see below); prints errors and times;
+   B=4 and B=16 (the batches whose tiles the main path uses): fp32 (the
+   SIMT body) with TF32 off within 1e-4, bf16 (the tensor-core body, one
+   cooperative launch per stage) within BF16_REL_TOL of the plain
+   version's peak (see below), and V2's four stages (C 64 to 8) at B=1 in
+   bf16; prints each call's plan (body, schedule, grid, tile), errors,
+   times and TFLOP/s, and the bf16 stages' sum per V1 request at each batch
+   beside the cuDNN chain's;
 3. serves V1 mel->wav requests of (1, 80, 256) and (16, 80, 256) through
    ``make_fast_vocoder`` in bf16 with seeded random weights, with the
    launch counts set to 0 just before and read just after (and after each
@@ -85,12 +90,13 @@ into the git-ignored ``build/kernels``), then:
    of one profiled step;
 13. extracts log-mels through ``log_mel_spectrogram(y, MelConfig.from_hparams(
    h, method='pallas'))`` at B=16 x 10 s, 16 x 8192 and 16 x 8305 samples
-   with the count set to 0 just before and read just after, holds the fused
-   log-mel kernel against its plain version (forward within 2e-4 + 1e-4
-   |plain|, the gradient of a sin-weighted sum within FP32_TOL of its peak)
-   and prints kernel, plain and cuFFT times, the bound of the work a log-mel
-   needs (a real FFT per frame) and that of the kernel's dense-DFT
-   algorithm;
+   (the kernel's FFT body) with the count set to 0 just before and read just
+   after, holds the fused log-mel kernel against its plain version (forward
+   within 2e-4 + 1e-4 |plain|, the gradient of a sin-weighted sum within
+   FP32_TOL of its peak), then the same at n_fft 1200, hop 300 (not a power
+   of two: the dense body), and prints kernel, plain and cuFFT times, the
+   bound of the work a log-mel needs (a real FFT per frame) and that of the
+   dense-DFT algorithm;
 14. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -203,6 +209,105 @@ def library_mrf(xc: torch.Tensor, convs: list, n_rb: int, pair: int, post=None) 
     if post is None:
         return out
     return torch.tanh(F.conv1d(F.leaky_relu(out, 0.01), post[0], post[1], padding=3))
+
+
+def stage_inputs_of(h, sd, mel: torch.Tensor, dev) -> list:
+    """Each MRF stage's input from a seeded generator's front (conv_pre, the
+    upsamplers and the plain stages before it), fp32, (B, T, C)."""
+    from hifigan_tpu_torch.ops import conv as ops
+    from hifigan_tpu_torch.ops import resblock_tail as tail
+
+    inputs = []
+    with torch.no_grad():
+        x = ops.conv1d(mel.transpose(1, 2), sd["conv_pre.weight"].to(dev).permute(2, 1, 0),
+                       sd["conv_pre.bias"].to(dev), padding=3)
+        for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"])):
+            x = ops.conv_transpose1d(ops.leaky_relu(x), sd[f"ups.{i}.weight"].to(dev).permute(2, 0, 1),
+                                     sd[f"ups.{i}.bias"].to(dev), stride=u,
+                                     padding=(k - u) // 2).contiguous()
+            inputs.append(x)
+            x = tail.fused_tail_stage_reference(x, tail.pack_generator_tail(h, sd, i, device=dev))
+    return inputs
+
+
+def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict:
+    """Phase 2: the MRF-stage kernel against its plain version at every stage
+    of config ``h``, full width, the lengths of a 256-frame request: fp32
+    within FP32_TOL (the SIMT body), bf16 within BF16_REL_TOL of the plain
+    version's peak (the tensor-core body). Prints each call's plan (body,
+    schedule, grid, tile), errors, times, TFLOP/s and bound; sums the bf16
+    stage times per request and batch."""
+    import functools
+
+    from hifigan_tpu_torch.ops import resblock_tail as tail
+
+    n_stages = len(h["upsample_rates"])
+    inputs = stage_inputs_of(h, sd, mel, dev)
+    errs = {dtype: 0.0 for dtype in dtypes}
+    per_batch = {b: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0}
+                 for b in batches}
+    for dtype in dtypes:
+        esize = torch.tensor([], dtype=dtype).element_size()
+        for i in range(n_stages):
+            post = i == n_stages - 1
+            packed = tail.pack_generator_tail(h, sd, i, dtype=dtype, device=dev)
+            post_pack = tail.prepare_post(sd, dtype=dtype, device=dev) if post else None
+            lib_convs = []
+            for rb in range(packed["n_rb"]):
+                for j in range(packed["convs_per_rb"]):
+                    k, d, off = packed["convs"][rb * packed["convs_per_rb"] + j]
+                    c = packed["channels"]
+                    w = packed["w"][off:off + k * c * c].view(k, c, c).permute(2, 1, 0).contiguous()
+                    lib_convs.append((w, packed["bias"][rb * packed["convs_per_rb"] + j], d))
+            lib_post = ((post_pack["w"].t()[None].contiguous(), post_pack["bias"])
+                        if post else None)
+            for batch in batches:
+                xs = inputs[i][:batch].to(dtype).contiguous()
+                plan = tail.plan_tail_stage(packed, batch, xs.shape[1], dtype, post,
+                                            tail._sm_count(dev.index or 0),
+                                            functools.partial(tail._blocks_per_sm, dev.index or 0))
+                with torch.no_grad():
+                    got = tail.fused_tail_stage(xs, packed, post_pack=post_pack)
+                    torch.cuda.synchronize()
+                    ref = tail.fused_tail_stage_reference(xs, packed, post_pack)
+                    xc = xs.transpose(1, 2).contiguous()
+                    lib = library_mrf(xc, lib_convs, packed["n_rb"], packed["pair_size"], lib_post)
+                tag = f"{name} stage {i} {dtype} B={batch}"
+                check(got.shape == ref.shape and got.dtype == ref.dtype,
+                      f"{tag}: {tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+                err = (got.float() - ref.float()).abs().max().item()
+                lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max().item()
+                peak = ref.float().abs().max().item()
+                tol = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL * peak
+                reps = {1: 20, 4: 5}.get(batch, 2)
+                with torch.no_grad():
+                    k_ms = time_ms(lambda: tail.fused_tail_stage(xs, packed, post_pack=post_pack), reps)
+                    p_ms = time_ms(lambda: tail.fused_tail_stage_reference(xs, packed, post_pack), reps)
+                    l_ms = time_ms(lambda: library_mrf(xc, lib_convs, packed["n_rb"],
+                                                       packed["pair_size"], lib_post), reps)
+                ops_n, bytes_n = stage_cost(packed, batch, xs.shape[1], esize, post)
+                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+                bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
+                print(f"{name} stage {i} C={packed['channels']} T={xs.shape[1]} B={batch} "
+                      f"{str(dtype)[6:]}{' +post' if post else ''} [{plan['body']}, "
+                      f"{plan['schedule']}, grid {plan['grid']}, tile {plan['tile']}, "
+                      f"{plan['items']} items]: max_abs_err {err:.3e} "
+                      f"(tol {tol:.3e}, peak {peak:.3f}, cudnn chain {lib_err:.3e}) "
+                      f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
+                      f"bound {bound:.4f} ms ({ops_n / k_ms / 1e9:.2f} TFLOP/s)")
+                check(err <= tol, f"{tag}: error {err} > {tol}")
+                errs[dtype] = max(errs[dtype], err)
+                if dtype == torch.bfloat16:
+                    r = per_batch[batch]
+                    r["ms"] += k_ms
+                    r["plain_ms"] += p_ms
+                    r["library_ms"] += l_ms
+                    r["ops"] += ops_n
+                    r["bytes"] += bytes_n
+    for r in per_batch.values():
+        r["bound_ms"] = max(r["ops"] / H100_BF16_FLOPS, r["bytes"] / H100_BYTES_PER_S) * 1e3
+    return {"errs": errs, "per_batch": per_batch, "request": per_batch[batches[0]]}
 
 
 def stage_cost(packed: dict, batch: int, seq: int, esize: int, post: bool) -> tuple[int, int]:
@@ -1315,18 +1420,78 @@ def logmel_cost(batch: int, frames: int, t: int, cfg) -> dict:
             "dense_bytes": 4 * (batch * t + n * 2 * n_bins + n_bins * mels + out), "nnz": nnz}
 
 
+def hold_log_mel(name: str, y: torch.Tensor, got: torch.Tensor, cfg, auto) -> dict:
+    """The fused log-mel kernel's output ``got`` for ``y`` against its plain
+    version (forward within 2e-4 + 1e-4 |plain|, the gradient of a
+    sin-weighted sum within FP32_TOL of the plain gradient's peak), each
+    error's share of its limit and both versions' distance from the same
+    log-mel through a float64 rfft; kernel, plain and cuFFT
+    (``method='auto'``) times and the bounds."""
+    from hifigan_tpu_torch.audio.mel import log_mel_spectrogram
+    from hifigan_tpu_torch.audio.stft import hann_window
+    from hifigan_tpu_torch.ops import logmel
+
+    with torch.no_grad():
+        want = logmel.fused_log_mel_reference(y, cfg)
+    check(got.shape == want.shape == (y.shape[0], cfg.num_mels, logmel.num_frames(y.shape[1], cfg)),
+          f"log-mel {name}: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"log-mel {name}: non-finite")
+    diff = (got - want).abs()
+    check(bool((diff <= 2e-4 + 1e-4 * want.abs()).all()),
+          f"log-mel {name}: max error {diff.max().item()} beyond 2e-4 + 1e-4 |plain|")
+    ratio = (diff / (2e-4 + 1e-4 * want.abs())).max().item()
+    # the exact answer's stand-in: the same log-mel through a float64 rfft
+    with torch.no_grad():
+        yp64, _ = logmel._pad_crop(y.double(), cfg)
+        window = torch.from_numpy(hann_window(cfg.n_fft, np.float64)).to(y.device)
+        spec = torch.fft.rfft(yp64.unfold(-1, cfg.n_fft, cfg.hop_size) * window, dim=-1)
+        fb = torch.from_numpy(logmel._tables(cfg)[1]).to(y.device).double()
+        exact = torch.log(torch.clamp(spec.abs() ** 2 @ fb, min=logmel.LOG_CLIP)).transpose(1, 2)
+    k_exact = (got.double() - exact).abs().max().item()
+    p_exact = (want.double() - exact).abs().max().item()
+    yk, yp = y.clone().requires_grad_(), y.clone().requires_grad_()
+    (gk,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel(yk, cfg)).sum(), yk)
+    (gp,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel_reference(yp, cfg)).sum(), yp)
+    g_err = (gk - gp).abs().max().item()
+    check(g_err <= FP32_TOL * gp.abs().max().item(),
+          f"log-mel {name}: gradient error {g_err} > {FP32_TOL} * {gp.abs().max().item()}")
+    with torch.no_grad():
+        k_ms = time_ms(lambda: logmel.fused_log_mel(y, cfg), 10)
+        p_ms = time_ms(lambda: logmel.fused_log_mel_reference(y, cfg), 10)
+        l_ms = time_ms(lambda: log_mel_spectrogram(y, auto), 10)
+    cost = logmel_cost(y.shape[0], got.shape[2], y.shape[1], cfg)
+    bnd, by = bound_ms(cost["flop"], cost["bytes"], H100_FP32_FLOPS)
+    dense_bnd, dense_by = bound_ms(cost["dense_flop"], cost["dense_bytes"], H100_FP32_FLOPS)
+    body = "fft" if logmel.uses_fft(cfg) else "dense"
+    print(f"log-mel {name} ({got.shape[2]} frames, n_fft {cfg.n_fft}, hop {cfg.hop_size}, "
+          f"{body} body): max_abs_err {diff.max().item():.3e} ({ratio:.3f} of its limit at "
+          f"worst; from a float64 rfft: kernel {k_exact:.3e}, plain {p_exact:.3e}), gradient "
+          f"max_abs_err {g_err:.3e} (peak {gp.abs().max().item():.3e}, "
+          f"{g_err / (FP32_TOL * gp.abs().max().item()):.3f} of its limit); kernel {k_ms:.4f} ms plain "
+          f"{p_ms:.4f} ms cuFFT (method='auto') {l_ms:.4f} ms; bound {bnd:.4f} ms ({by}; FFT "
+          f"count {cost['flop'] / 1e9:.4f} GFLOP with the filterbank's {cost['nnz']} nonzeros, "
+          f"{cost['bytes'] / 1e6:.3f} MB); the dense-DFT algorithm's own bound "
+          f"{dense_bnd:.4f} ms ({dense_by}; {cost['dense_flop'] / 1e9:.2f} GFLOP)")
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bnd, "bound_by": by,
+            "dense_dft_bound_ms": dense_bnd, "body": body, "err": diff.max().item(),
+            "grad_err": g_err, "err_from_float64": k_exact, "plain_err_from_float64": p_exact}
+
+
 def logmel_phase(h, dev) -> dict:
     """Phase 13: the fused log-mel kernel through mel extraction
     (``log_mel_spectrogram(y, MelConfig.from_hparams(h, method='pallas'))``)
-    at the V1 geometry, with the count set to 0 just before and read just
-    after, held against its plain version (forward within 2e-4 + 1e-4 |plain|,
-    the gradient of a sin-weighted sum within FP32_TOL of the plain
-    gradient's peak); kernel, plain and cuFFT (``method='auto'``) times."""
+    at the V1 geometry (its FFT body), with the count set to 0 just before
+    and read just after, each batch held by :func:`hold_log_mel`; then the
+    dense body at a geometry whose n_fft is not a power of two (1200 / 300,
+    n_fft = 4 hop as the gate asks) held the same way."""
+    import dataclasses
+
     from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
     from hifigan_tpu_torch.ops import logmel
 
     cfg = MelConfig.from_hparams(h, method="pallas")
     auto = MelConfig.from_hparams(h)
+    check(logmel.uses_fft(cfg), f"the V1 geometry should take the FFT body: {cfg}")
     sr = h["sampling_rate"]
     lengths = {"16 x 10 s": 10 * sr, "16 x 8192": SEGMENT, "16 x 8192+113": SEGMENT + 113}
     ys = {name: torch.from_numpy(synthetic_audio(16, t, sr, SEED + 60 + i)).to(dev)
@@ -1337,43 +1502,18 @@ def logmel_phase(h, dev) -> dict:
     launches = logmel.LAUNCHES
     check(launches == len(ys), f"mel extraction launched the log-mel kernel {launches} times, "
                                f"expected {len(ys)}")
-    err, grad_err, rows = 0.0, 0.0, {}
-    for name, y in ys.items():
-        got = outs[name]
-        with torch.no_grad():
-            want = logmel.fused_log_mel_reference(y, cfg)
-        check(got.shape == want.shape == (16, cfg.num_mels, logmel.num_frames(y.shape[1], cfg)),
-              f"log-mel {name}: shape {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"log-mel {name}: non-finite")
-        diff = (got - want).abs()
-        check(bool((diff <= 2e-4 + 1e-4 * want.abs()).all()),
-              f"log-mel {name}: max error {diff.max().item()} beyond 2e-4 + 1e-4 |plain|")
-        err = max(err, diff.max().item())
-        yk, yp = y.clone().requires_grad_(), y.clone().requires_grad_()
-        (gk,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel(yk, cfg)).sum(), yk)
-        (gp,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel_reference(yp, cfg)).sum(), yp)
-        g_err = (gk - gp).abs().max().item()
-        check(g_err <= FP32_TOL * gp.abs().max().item(),
-              f"log-mel {name}: gradient error {g_err} > {FP32_TOL} * {gp.abs().max().item()}")
-        grad_err = max(grad_err, g_err)
-        with torch.no_grad():
-            k_ms = time_ms(lambda: logmel.fused_log_mel(y, cfg), 10)
-            p_ms = time_ms(lambda: logmel.fused_log_mel_reference(y, cfg), 10)
-            l_ms = time_ms(lambda: log_mel_spectrogram(y, auto), 10)
-        cost = logmel_cost(16, got.shape[2], y.shape[1], cfg)
-        bnd, by = bound_ms(cost["flop"], cost["bytes"], H100_FP32_FLOPS)
-        dense_bnd, dense_by = bound_ms(cost["dense_flop"], cost["dense_bytes"], H100_FP32_FLOPS)
-        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bnd,
-                      "bound_by": by, "dense_dft_bound_ms": dense_bnd}
-        print(f"log-mel {name} ({got.shape[2]} frames): max_abs_err {diff.max().item():.3e}, "
-              f"gradient max_abs_err {g_err:.3e} (peak {gp.abs().max().item():.3e}); kernel "
-              f"{k_ms:.4f} ms plain {p_ms:.4f} ms cuFFT (method='auto') {l_ms:.4f} ms; bound "
-              f"{bnd:.4f} ms ({by}; FFT count {cost['flop'] / 1e9:.4f} GFLOP with the "
-              f"filterbank's {cost['nnz']} nonzeros, {cost['bytes'] / 1e6:.3f} MB); the dense-DFT "
-              f"algorithm's own bound {dense_bnd:.4f} ms ({dense_by}; "
-              f"{cost['dense_flop'] / 1e9:.2f} GFLOP, the kernel at "
-              f"{cost['dense_flop'] / max(k_ms, 1e-6) / 1e9:.2f} TFLOP/s of it)")
-    return {"launches": launches, "err": err, "grad_err": grad_err, "rows": rows}
+    rows = {name: hold_log_mel(name, y, outs[name], cfg, auto) for name, y in ys.items()}
+    geometry = dict(n_fft=1200, win_size=1200, hop_size=300)
+    dense = dataclasses.replace(cfg, **geometry)
+    check(logmel.supports_fused_log_mel(dense) and not logmel.uses_fft(dense),
+          f"{dense} should take the dense body")
+    y = ys["16 x 10 s"]
+    with torch.no_grad():
+        got = log_mel_spectrogram(y, dense)
+    rows["16 x 10 s, n_fft 1200"] = hold_log_mel("16 x 10 s, n_fft 1200", y, got, dense,
+                                                 dataclasses.replace(auto, **geometry))
+    return {"launches": launches, "err": max(r["err"] for r in rows.values()),
+            "grad_err": max(r["grad_err"] for r in rows.values()), "rows": rows}
 
 
 def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
@@ -1413,6 +1553,8 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
         "name": "fused_log_mel",
         "route": "cuda",
         "source": "hifigan_tpu_torch/csrc/logmel.cu",
+        "redesigned": ("a Stockham FFT per pair of frames in shared memory and a sparse "
+                       "filterbank (power-of-two n_fft); other geometries keep the dense DFT"),
         "replaces": "hifigan_tpu/ops/pallas/logmel.py:135",
         "launches": mel["launches"],
         "launches_per_step": None,
@@ -1424,9 +1566,9 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
                 "16 x 8192, 16 x 8305 samples at 22,050 Hz); times and bound: the 16 x 10 s "
                 "batch, fp32 (library: method='auto', torch.fft.rfft; bound: the work a log-mel "
                 "needs, a real FFT per frame and the filterbank's nonzeros, while "
-                "rows.dense_dft_bound_ms bounds the kernel's dense-DFT algorithm only); "
-                "max_abs_err: the three batches (fp32 only: the op takes fp32); its backward "
-                "is the plain composition"),
+                "rows.dense_dft_bound_ms bounds the dense-DFT algorithm only); max_abs_err: "
+                "the three batches and the dense body at n_fft 1200, hop 300 (fp32 only: the op "
+                "takes fp32); its backward is the plain composition"),
         "rows": mel["rows"],
     })
     return kernels
@@ -1446,7 +1588,6 @@ def main() -> int:
     from hifigan_tpu_torch.models import Generator, MultiScaleDiscriminator, fold_weight_norm
     from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
     from hifigan_tpu_torch.ops import _build
-    from hifigan_tpu_torch.ops import conv as ops
     from hifigan_tpu_torch.ops import resblock_tail as tail
 
     # 1. card and build
@@ -1474,74 +1615,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. kernel vs plain version, every V1 stage at full width
+    # 2. kernel vs plain version, every V1 stage at full width (and V2's in bf16)
     mel_gen = torch.Generator().manual_seed(SEED + 1)
     mel_in = (torch.randn((max(BATCHES), h["num_mels"], FRAMES), generator=mel_gen) * 2 - 5).to(dev)
-    stage_inputs = []
-    with torch.no_grad():
-        x = ops.conv1d(mel_in.transpose(1, 2), sd["conv_pre.weight"].to(dev).permute(2, 1, 0),
-                       sd["conv_pre.bias"].to(dev), padding=3)
-        for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"])):
-            x = ops.conv_transpose1d(ops.leaky_relu(x), sd[f"ups.{i}.weight"].to(dev).permute(2, 0, 1),
-                                     sd[f"ups.{i}.bias"].to(dev), stride=u,
-                                     padding=(k - u) // 2).contiguous()
-            stage_inputs.append(x)
-            x = tail.fused_tail_stage_reference(x, tail.pack_generator_tail(h, sd, i, device=dev))
-
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    request = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0}
-    for dtype in (torch.float32, torch.bfloat16):
-        esize = torch.tensor([], dtype=dtype).element_size()
-        for i in range(n_stages):
-            post = i == n_stages - 1
-            packed = tail.pack_generator_tail(h, sd, i, dtype=dtype, device=dev)
-            post_pack = tail.prepare_post(sd, dtype=dtype, device=dev) if post else None
-            lib_convs = []
-            for rb in range(packed["n_rb"]):
-                for j in range(packed["convs_per_rb"]):
-                    k, d, off = packed["convs"][rb * packed["convs_per_rb"] + j]
-                    c = packed["channels"]
-                    w = packed["w"][off:off + k * c * c].view(k, c, c).permute(2, 1, 0).contiguous()
-                    lib_convs.append((w, packed["bias"][rb * packed["convs_per_rb"] + j], d))
-            lib_post = ((post_pack["w"].t()[None].contiguous(), post_pack["bias"])
-                        if post else None)
-            for batch in BATCHES:
-                xs = stage_inputs[i][:batch].to(dtype).contiguous()
-                with torch.no_grad():
-                    got = tail.fused_tail_stage(xs, packed, post_pack=post_pack)
-                    torch.cuda.synchronize()
-                    ref = tail.fused_tail_stage_reference(xs, packed, post_pack)
-                    xc = xs.transpose(1, 2).contiguous()
-                    lib = library_mrf(xc, lib_convs, packed["n_rb"], packed["pair_size"], lib_post)
-                check(got.shape == ref.shape and got.dtype == ref.dtype,
-                      f"stage {i} {dtype} B={batch}: {tuple(got.shape)} {got.dtype}")
-                check(bool(torch.isfinite(got).all()), f"stage {i} {dtype} B={batch}: non-finite")
-                err = (got.float() - ref.float()).abs().max().item()
-                lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max().item()
-                peak = ref.float().abs().max().item()
-                tol = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL * peak
-                reps = {1: 20, 4: 5}.get(batch, 2)
-                with torch.no_grad():
-                    k_ms = time_ms(lambda: tail.fused_tail_stage(xs, packed, post_pack=post_pack), reps)
-                    p_ms = time_ms(lambda: tail.fused_tail_stage_reference(xs, packed, post_pack), reps)
-                    l_ms = time_ms(lambda: library_mrf(xc, lib_convs, packed["n_rb"],
-                                                       packed["pair_size"], lib_post), reps)
-                ops_n, bytes_n = stage_cost(packed, batch, xs.shape[1], esize, post)
-                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
-                bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
-                print(f"stage {i} C={packed['channels']} T={xs.shape[1]} B={batch} "
-                      f"{str(dtype)[6:]}{' +post' if post else ''}: max_abs_err {err:.3e} "
-                      f"(tol {tol:.3e}, peak {peak:.3f}, cudnn chain {lib_err:.3e}) "
-                      f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
-                      f"bound {bound:.4f} ms ({ops_n / k_ms / 1e9:.2f} TFLOP/s)")
-                check(err <= tol, f"stage {i} {dtype} B={batch}: error {err} > {tol}")
-                errs[dtype] = max(errs[dtype], err)
-                if dtype == torch.bfloat16 and batch == 1:
-                    request["ms"] += k_ms
-                    request["plain_ms"] += p_ms
-                    request["library_ms"] += l_ms
-                    request["ops"] += ops_n
-                    request["bytes"] += bytes_n
+    mrf = mrf_phase(h, sd, mel_in, dev, "V1", (torch.float32, torch.bfloat16), BATCHES)
+    errs, request = mrf["errs"], mrf["request"]
+    h2 = get_config("v2")
+    sd2 = fold_weight_norm(Generator(h2, generator=torch.Generator().manual_seed(SEED)).state_dict())
+    v2 = mrf_phase(h2, sd2, mel_in[:1], dev, "V2", (torch.bfloat16,), (1,))
+    errs[torch.bfloat16] = max(errs[torch.bfloat16], v2["errs"][torch.bfloat16])
+    for b in BATCHES:
+        r = mrf["per_batch"][b]
+        print(f"B1 bf16 per V1 request at B={b}: kernel {r['ms']:.4f} ms over the "
+              f"{n_stages} stages, cudnn chain {r['library_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
     # 3. serve requests through the port's main path
     torch.cuda.empty_cache()
@@ -1676,8 +1763,14 @@ def main() -> int:
                      >= request["bytes"] / H100_BYTES_PER_S else "bytes"),
         "library_ms": request["library_ms"],
         "per": ("launches: the main path's run of two requests (B=1 and B=16), "
-                "launches_per_request: each; times, errors and bound: one V1 B=1 "
-                "256-frame request, 4 stage calls, bf16 (max_abs_err: fp32)"),
+                "launches_per_request: each; times and bound: one V1 B=1 256-frame request, "
+                "4 stage calls, bf16 (per_batch: the same at B=1, 4, 16); max_abs_err: fp32 "
+                "(the SIMT body), max_abs_err_bf16: every V1 stage at B=1, 4, 16 and every V2 "
+                "stage at B=1"),
+        "redesigned": ("bf16: mma.sync tensor-core conv core, one cooperative launch per stage "
+                       "walking the whole sequence conv by conv (no halo recompute)"),
+        "per_batch": {str(b): {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                      for b, r in mrf["per_batch"].items()},
         "serve_ms": serve,
     }]
     rows = [r for r in stack["per_scale"] if r["dtype"] == "float32"]

@@ -13,27 +13,47 @@
 //   mel   = power @ fb             fb (n_bins, mels)
 //   out[b, m, f] = log(max(mel[m], 1e-5))
 //
-// all in fp32 FMA (no TF32: the JAX kernel runs its matmuls at HIGHEST, and
+// all in fp32 (no TF32: the JAX kernel runs its matmuls at HIGHEST, and
 // the error near the log clip needs full fp32). No backward kernel: the
 // wrapper's VJP recomputes through the plain matmul composition, as the JAX
 // one does.
 //
-// What bounds it: arithmetic. At the V1 geometry (n_fft 1024, hop 256, 80
-// mels) a frame is ~2.18 MFLOP against ~1 KB of new signal and 320 B of
-// output; the 4.2 MB basis and 164 KB filterbank stay in L2.
+// What bounds it: nothing of the card's at this size. A 16 x 10 s batch at
+// the V1 geometry (n_fft 1024, hop 256, 80 mels) needs ~0.41 GFLOP as an
+// FFT a frame and ~18.5 MB of signal and output: a few microseconds of
+// either. What costs is the algorithm: the DFT as a dense product does 73x
+// the FFT's operations.
 //
-// Design (simple and correct first): one 256-thread block per (utterance,
-// tile of kTileF frames).
+// Two bodies, chosen on the host by n_fft (hifigan_tpu_torch/ops/logmel.py):
+//
+// FFT body (hifigan_logmel_fft; n_fft a power of two up to 2048, every
+// shipped config): one 256-thread block per (utterance, kFftFrames frames).
+// - The tile's (kFftFrames - 1)*hop + n_fft samples are staged in shared
+//   memory once. Frames 2q and 2q+1 are windowed on the load into the real
+//   and imaginary parts of one complex sequence z = a + i b.
+// - A complex n_fft-point FFT per pair, all pairs of the tile at once:
+//   Stockham autosort passes (a radix-2 pass first when log2 n_fft is odd,
+//   then radix-4), ping-ponging between two shared-memory buffers, one
+//   block barrier per pass; each butterfly twiddles its inputs from a table
+//   exp(-2 pi i m / n_fft) that the host computes in float64.
+// - The real split: A[k] = (Z[k] + conj Z[n-k]) / 2 and B[k] = (Z[k] -
+//   conj Z[n-k]) / 2i give both frames' onesided spectra; their power goes
+//   to the free buffer.
+// - The filterbank is stored sparse: per mel its contiguous range of
+//   nonzero bins (729 weights at V1 against the dense 513 x 80); one
+//   (frame, mel) output a thread, frames on neighbouring lanes, then the
+//   log clamp.
+//
+// Dense body (hifigan_logmel; any other geometry the gate admits, e.g.
+// n_fft 1200, hop 300): one 256-thread block per (utterance, tile of
+// kTileF frames).
 // - The tile's (kTileF - 1)*hop + n_fft contiguous samples are staged in
-//   shared memory once; frames are read from there directly (the TPU
-//   kernel's 4 hop-block partial matmuls and 8-row DMA alignment are TPU
-//   devices).
-// - The DFT walks the bins in chunks of kChunk: the basis rows stream
-//   through shared memory kBK at a time (the re and im columns of the
-//   chunk side by side), each thread holding 4 frames x 4 bins of re and
-//   im in registers; the chunk's power goes to shared memory. Bins past the
-//   last whole chunk (the Nyquist bin at n_fft 1024) are summed by warps
-//   with a shuffle reduction.
+//   shared memory once; frames are read from there directly.
+// - The DFT walks the bins in chunks of kChunk: the windowed basis rows
+//   stream through shared memory kBK at a time (the re and im columns of
+//   the chunk side by side), each thread holding 4 frames x 4 bins of re
+//   and im in registers; the chunk's power goes to shared memory. Bins past
+//   the last whole chunk are summed by warps with a shuffle reduction.
 // - The mel product then reads the tile's power from shared memory, one
 //   (frame, mel) output a thread at a time, and writes the (mels, F)
 //   output with frames on neighbouring lanes.
@@ -148,11 +168,118 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// --- FFT body ---
+
+constexpr int kFftFrames = 8;              // frames per block
+constexpr int kFfts = kFftFrames / 2;      // complex FFTs per block: two frames each
+constexpr int kFftMaxN = 2048;
+
+__host__ __device__ inline int fft_smem_floats(int hop, int n_fft) {
+  return (((kFftFrames - 1) * hop + n_fft + 3) & ~3) + 2 * kFfts * n_fft * 2;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+__global__ void __launch_bounds__(kThreads)
+    logmel_fft_kernel(const float* __restrict__ sig, const float* __restrict__ window,
+                      const float2* __restrict__ twiddle, const int* __restrict__ mel_idx,
+                      const float* __restrict__ fb_vals, float* __restrict__ out, int F, int L,
+                      int hop, int n_fft, int log2n, int mels) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_sig = (kFftFrames - 1) * hop + n_fft;
+  float* sig_s = smem;
+  float2* src = reinterpret_cast<float2*>(smem + ((n_sig + 3) & ~3));
+  float2* dst = src + kFfts * n_fft;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, f0 = blockIdx.x * kFftFrames;
+  const int nf = min(kFftFrames, F - f0);
+
+  // stage the tile's samples (zeros past the signal's end feed frames past F only)
+  const float* row = sig + (long)b * L + (long)f0 * hop;
+  const int avail = L - f0 * hop;
+  for (int i = tid; i < n_sig; i += kThreads) sig_s[i] = i < avail ? row[i] : 0.f;
+  __syncthreads();
+
+  // frames 2q and 2q+1, windowed, as the real and imaginary parts of FFT q
+  for (int e = tid; e < kFfts * n_fft; e += kThreads) {
+    const int q = e >> log2n, n = e & (n_fft - 1);
+    const float w = __ldg(window + n);
+    src[e] = make_float2(sig_s[2 * q * hop + n] * w, sig_s[(2 * q + 1) * hop + n] * w);
+  }
+  __syncthreads();
+
+  // Stockham autosort passes: radix 2 first when log2 n_fft is odd, then radix 4.
+  // Pass with radix R over sub-transforms of size ns: butterfly j reads
+  // src[j + r * n/R] (r < R), twiddled by exp(-2 pi i r (j % ns) / (ns R)),
+  // and writes its R-point DFT to dst[(j / ns) * ns * R + j % ns + r * ns].
+  for (int ns = 1; ns < n_fft;) {
+    const int lr = (ns == 1 && (log2n & 1)) ? 1 : 2;  // log2 of the radix
+    const int nr = n_fft >> lr;                       // butterflies per FFT
+    for (int e = tid; e < kFfts * nr; e += kThreads) {
+      const int q = e / nr, j = e - q * nr;
+      const float2* s = src + q * n_fft;
+      float2* d = dst + q * n_fft;
+      const int jm = j & (ns - 1);
+      const int tw = jm * (n_fft >> lr) / ns;  // table step of r = 1
+      const int o = ((j - jm) << lr) + jm;
+      if (lr == 1) {
+        const float2 v0 = s[j], v1 = cmul(s[j + nr], __ldg(twiddle + tw));
+        d[o] = cadd(v0, v1);
+        d[o + ns] = csub(v0, v1);
+      } else {
+        const float2 v0 = s[j];
+        const float2 v1 = cmul(s[j + nr], __ldg(twiddle + tw));
+        const float2 v2 = cmul(s[j + 2 * nr], __ldg(twiddle + 2 * tw));
+        const float2 v3 = cmul(s[j + 3 * nr], __ldg(twiddle + 3 * tw));
+        const float2 a = cadd(v0, v2), bb = csub(v0, v2), c = cadd(v1, v3), dd = csub(v1, v3);
+        d[o] = cadd(a, c);
+        d[o + ns] = make_float2(bb.x + dd.y, bb.y - dd.x);  // b - i d
+        d[o + 2 * ns] = csub(a, c);
+        d[o + 3 * ns] = make_float2(bb.x - dd.y, bb.y + dd.x);  // b + i d
+      }
+    }
+    __syncthreads();
+    float2* t = src;
+    src = dst;
+    dst = t;
+    ns <<= lr;
+  }
+
+  // real split and power of both frames into the free buffer: [frame][bin]
+  const int n_bins = n_fft / 2 + 1;
+  float* power_s = reinterpret_cast<float*>(dst);
+  for (int e = tid; e < kFfts * n_bins; e += kThreads) {
+    const int q = e / n_bins, k = e - q * n_bins;
+    const float2 zk = src[q * n_fft + k], zn = src[q * n_fft + ((n_fft - k) & (n_fft - 1))];
+    const float ar = zk.x + zn.x, ai = zk.y - zn.y, br = zk.x - zn.x, bi = zk.y + zn.y;
+    power_s[2 * q * n_bins + k] = 0.25f * (ar * ar + ai * ai);
+    power_s[(2 * q + 1) * n_bins + k] = 0.25f * (br * br + bi * bi);
+  }
+  __syncthreads();
+
+  // sparse filterbank (per mel: first bin, count, offset of its weights) and log
+  const int f = tid % kFftFrames, mg = tid / kFftFrames;
+  if (f < nf) {
+    for (int m = mg; m < mels; m += kThreads / kFftFrames) {
+      const int k0 = __ldg(mel_idx + m), cnt = __ldg(mel_idx + mels + m),
+                off = __ldg(mel_idx + 2 * mels + m);
+      const float* p = power_s + f * n_bins + k0;
+      float acc = 0.f;
+      for (int i = 0; i < cnt; ++i) acc = fmaf(p[i], __ldg(fb_vals + off + i), acc);
+      out[((long)b * mels + m) * F + f0 + f] = logf(fmaxf(acc, kClip));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// sig (batch, L) fp32 with L = (F - 1)*hop + n_fft, basis (n_fft, 2*n_bins),
+// The dense body. sig (batch, L) fp32 with L = (F - 1)*hop + n_fft, basis (n_fft, 2*n_bins),
 // fb (n_bins, mels), out (batch, mels, F), all contiguous fp32. Returns the
 // cudaError_t of the launch (invalid value for a geometry the kernel does
 // not take or shared memory beyond the card's).
@@ -175,6 +302,36 @@ int hifigan_logmel(const float* sig, const float* basis, const float* fb, float*
   const dim3 grid((F + kTileF - 1) / kTileF, batch);
   logmel_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       sig, basis, fb, out, F, L, hop, n_fft, n_bins, mels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The FFT body. sig (batch, L) fp32 with L = (F - 1)*hop + n_fft; window
+// (n_fft,); twiddle (n_fft,) complex exp(-2 pi i m / n_fft) as (re, im)
+// pairs; mel_idx (3, mels) int32: each mel's first nonzero bin, count and
+// offset into fb_vals; out (batch, mels, F). n_fft must be a power of two
+// in [4, 2048]. Returns the cudaError_t of the launch.
+int hifigan_logmel_fft(const float* sig, const float* window, const float* twiddle,
+                       const int* mel_idx, const float* fb_vals, float* out, int batch, int F,
+                       int L, int hop, int n_fft, int mels, void* stream) {
+  int log2n = 0;
+  while ((1 << log2n) < n_fft) ++log2n;
+  if (batch < 1 || F < 1 || hop < 1 || mels < 1 || n_fft < 4 || n_fft > kFftMaxN ||
+      (1 << log2n) != n_fft || L < (F - 1) * hop + n_fft || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = (size_t)fft_smem_floats(hop, n_fft) * sizeof(float);
+  int dev = 0, max_optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > (size_t)max_optin) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(logmel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((F + kFftFrames - 1) / kFftFrames, batch);
+  logmel_fft_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      sig, window, reinterpret_cast<const float2*>(twiddle), mel_idx, fb_vals, out, F, L, hop,
+      n_fft, log2n, mels);
   return static_cast<int>(cudaGetLastError());
 }
 

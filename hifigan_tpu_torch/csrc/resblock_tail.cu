@@ -16,10 +16,14 @@
 //
 // What bounds it: arithmetic. A V1 request of 256 mel frames at B=1 does
 // about 152 GFLOP of MRF work (18 convs per stage, 126 taps * C^2 per
-// output sample) against a few hundred MB of activations and weights, far
-// above the H100's ~20 FLOP/byte fp32 ridge.
+// output sample) against a few tens of MB of activations and weights, far
+// above the H100's ridge (~295 FLOP/byte in bf16, ~20 in fp32).
 //
-// Design (simple and correct first; wgmma/TMA are later work):
+// Two bodies, chosen by the storage type (the wrapper passes it
+// explicitly):
+//
+// fp32 -- the SIMT body (hifigan_mrf_stage). TF32 would break the 1e-4
+// fp32 parity, so fp32 stays on CUDA cores:
 // - Work item = (batch row, time tile). A block computes the tile plus the
 //   stage halo (sum of one chain's conv radii, + 3 with the post conv) and
 //   walks each resblock chain conv by conv, shrinking the computed rows by
@@ -27,20 +31,35 @@
 // - Each conv is a tiled SIMT GEMM with fp32 FMA: out rows x out channels
 //   in 64x64 (C >= 64) or 128x32 tiles, 4x4 per thread; the K loop stages
 //   16 input channels of every tap's shifted rows (lrelu + sequence mask
-//   applied on the load) and those channels' weights of every tap in
-//   shared memory. Weights stream from global/L2.
-// - Intermediate activations live in a per-block scratch in global memory
-//   (two ping-pong buffers of (tile + 2*halo) x C in the storage type, plus
-//   an fp32 mean accumulator), not in shared memory. At stage 0 (C=256) a
-//   64-row tile plus 2 x 60 halo rows is 188 KB per fp32 buffer: two such
-//   buffers do not fit in 227 KB, and the GEMM staging needs room too. The
-//   scratch of one block is a few hundred KB and stays in L2; blocks loop
-//   over work items (persistent grid), so the scratch is sized by the grid,
-//   not by the sequence.
-// - bf16 and fp32 storage share one code path: loads convert to fp32,
-//   each conv's output is rounded back to the storage type (the reference's
-//   per-conv rounding), accumulation is fp32 throughout.
+//   applied on the load) and those channels' weights in shared memory.
+// - Intermediates live in a per-block global scratch (two ping-pong
+//   buffers plus an fp32 mean accumulator); blocks loop over work items.
+//
+// bf16 -- the tensor-core body (hifigan_mrf_stage_tc), the served path:
+// - Conv core: each conv is an implicit GEMM, M = output rows, N = C_out,
+//   K = taps x C_in, on mma.sync.m16n8k16 (bf16 in, fp32 accumulators).
+//   A 128-row x BN-column output tile (BN = 32, 64 or 128 by C, 8 warps
+//   of 32 columns each) reads its A operand from a shared-memory window of
+//   128 + (k-1)*d rows x C_in, lrelu(0.1) and the sequence mask already
+//   applied, rows padded by 8 elements so ldmatrix is conflict-free; tap t
+//   reads it at row offset t*d. The taps stream in (tap, 64 input
+//   channels) chunks through a 3-stage cp.async ring, so copies overlap the
+//   products; ldmatrix.trans feeds the (K, N) weight tiles. C_in is padded
+//   to 16 with zeros (V2's C = 8 and 16); C must be a multiple of 8.
+// - Epilogue as the SIMT one: bias, round, residual, round.
+// - Schedule: one persistent cooperative launch runs the stage conv by
+//   conv over the whole sequence. Phase j computes conv j of every
+//   resblock at once (its output tiles spread over all co-resident blocks,
+//   the widest kernels first), then a grid-wide barrier; activations
+//   ping-pong through two (B, T, C) buffers per resblock in device memory
+//   (1-4 MB at B=1, in the 50 MB L2). A last phase takes the fp32 mean over
+//   resblocks (with the post conv, one more barrier and phase). No halo is
+//   recomputed and every SM gets work at B=1. A tiled schedule that keeps a
+//   time tile plus halo in shared memory (x read and y written once) was
+//   measured slower at every V1 and V2 stage and batch on the H100 and is
+//   not kept (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -270,6 +289,335 @@ int launch(const StageArgs& a, int grid, int smem_bytes, cudaStream_t stream) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core body
+// ---------------------------------------------------------------------------
+namespace {
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128;    // output rows of a conv tile
+constexpr int kStages = 3;  // cp.async ring of weight chunks
+constexpr int kPad = 8;     // bf16 elements of padding per shared-memory row
+
+struct Args {
+  const bf16* x;       // (B, T, C)
+  const bf16* w;       // every conv's (K, C, C) taps, concatenated
+  const bf16* bias;    // (n_conv, C)
+  const int* desc;     // per conv: k, dilation, offset of its taps in w
+  const bf16* post_w;  // (7, C) or null
+  const bf16* post_b;  // (1,)
+  void* y;             // (B, T, C) bf16, or (B, T) fp32 with post
+  bf16* scratch;       // (2 * n_rb + post) planes of (B, T, C)
+  int batch, seq, C, cpad, kc, n_rb, convs_per_rb, pair_size, max_ext;
+};
+
+template <int BN>
+struct Tile {
+  static constexpr int WARPS_N = BN / 32;
+  static constexpr int WARPS_M = 8 / WARPS_N;
+  static constexpr int WM = kBM / WARPS_M;  // rows per warp
+  static constexpr int MT = WM / 16;        // m16 tiles per warp
+  static constexpr int WS = BN + kPad;      // weight chunk row stride
+};
+
+__host__ __device__ inline int align8(int v) { return (v + 7) & ~7; }
+
+// Shared memory (bytes) of the kernel; the host computes the same.
+__host__ __device__ inline int weight_ring_bytes(int bn, int kc) {
+  return kStages * kc * (bn + kPad) * 2;
+}
+__host__ __device__ inline int stage_smem(int bn, int cpad, int kc, int max_ext) {
+  return align8((kBM + max_ext) * (cpad + kPad)) * 2 + weight_ring_bytes(bn, kc);
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ bf16 tobf(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ float rnd(float v) { return bf(tobf(v)); }
+__device__ __forceinline__ bf16 lrelu_b(bf16 v, float slope) {
+  const float f = bf(v);
+  return f >= 0.f ? v : tobf(f * slope);
+}
+__device__ __forceinline__ uint4 lrelu8(uint4 v, float slope) {
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = lrelu_b(e[i], slope);
+  return v;
+}
+
+// Weight chunk q of a conv (tap q / kchunks, input channels from
+// (q % kchunks) * kc, output columns [n0, n0 + BN)) into a ring slot;
+// channels and columns past C read as zero.
+template <int BN>
+__device__ __forceinline__ void load_w_chunk(bf16* dst, const bf16* w, int q, int kchunks, int kc,
+                                             int C, int n0) {
+  constexpr int PR = BN / 8;  // 16-byte pieces per row
+  const int tap = q / kchunks, ci0 = (q % kchunks) * kc;
+  for (int e = threadIdx.x; e < kc * PR; e += kThreads) {
+    const int row = e / PR, col = (e % PR) * 8;
+    const int ci = ci0 + row, co = n0 + col;
+    const bool ok = ci < C && co < C;
+    cp_async16(dst + row * Tile<BN>::WS + col, ok ? w + ((long)tap * C + ci) * C + co : w, ok);
+  }
+}
+
+// One kBM x BN output tile of a 'same' dilated conv into fp32 registers:
+// acc[m][n] = sum_tap sum_ci A[a0 + m + tap*d][ci] * w[tap][ci][n0 + n].
+// A is bf16 in shared memory (row stride as, rows past a_rows - 1 clamped:
+// they feed only output rows the caller discards). Ends with the block
+// synchronised and the weight ring drained.
+template <int BN>
+__device__ void conv_core(float (&acc)[Tile<BN>::MT][4][4], const bf16* A, int as, int a0,
+                          int a_rows, const bf16* w, int k, int d, int C, int cpad, int kc,
+                          int n0, bf16* ring) {
+  using T = Tile<BN>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm0 = (warp / T::WARPS_N) * T::WM, wn0 = (warp % T::WARPS_N) * 32;
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+  const int kchunks = cpad / kc;
+  const int nq = k * kchunks;
+  const int slot = kc * T::WS;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nq) load_w_chunk<BN>(ring + s * slot, w, s, kchunks, kc, C, n0);
+    cp_async_commit();
+  }
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk q landed for all; chunk q - 1's slot is free
+    const int nxt = q + kStages - 1;
+    if (nxt < nq) load_w_chunk<BN>(ring + (nxt % kStages) * slot, w, nxt, kchunks, kc, C, n0);
+    cp_async_commit();
+    const bf16* wc = ring + (q % kStages) * slot;
+    const int tap = q / kchunks, ci0 = (q % kchunks) * kc;
+    const bf16* arow[T::MT];
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i) {
+      const int row = min(a0 + wm0 + i * 16 + (lane & 15) + tap * d, a_rows - 1);
+      arow[i] = A + row * as + ci0 + (lane >> 4) * 8;
+    }
+    const bf16* brow = wc + (lane & 15) * T::WS + wn0 + (lane >> 4) * 8;
+    for (int kk = 0; kk < kc; kk += 16) {
+      uint32_t af[T::MT][4];
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) ldsm_x4(af[i], arow[i] + kk);
+      uint32_t bfr[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) ldsm_x4_t(bfr[np], brow + kk * T::WS + np * 16);
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma16816(acc[i][j], af[i], bfr[j / 2][(j % 2) * 2], bfr[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The fragment element (i, j, v) of a warp's tile: row and column within
+// the kBM x BN output tile.
+template <int BN>
+__device__ __forceinline__ int frag_row(int i, int v) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp / Tile<BN>::WARPS_N) * Tile<BN>::WM + i * 16 + (lane >> 2) + (v / 2) * 8;
+}
+template <int BN>
+__device__ __forceinline__ int frag_col(int j) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return (warp % Tile<BN>::WARPS_N) * 32 + j * 8 + (lane & 3) * 2;
+}
+
+// lrelu(0.1)(src) of rows [g_start, g_start + rows), zero outside [0, seq)
+// and past C, into the operand window A.
+__device__ void stage_window(bf16* A, int as, const bf16* src, int g_start, int rows, int seq,
+                             int C, int cpad) {
+  const int pr = cpad / 8;
+  for (int e = threadIdx.x; e < rows * pr; e += kThreads) {
+    const int i = e / pr, c = (e % pr) * 8, g = g_start + i;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (g >= 0 && g < seq && c < C)
+      v = lrelu8(*reinterpret_cast<const uint4*>(src + (long)g * C + c), 0.1f);
+    *reinterpret_cast<uint4*>(A + i * as + c) = v;
+  }
+}
+
+// conv_post (k7, C -> 1) + tanh of one output sample, by one warp: the
+// lrelu(0.01) of the mean m (B's (T, C) plane) at rows [g - 3, g + 3],
+// zero outside the sequence.
+__device__ __forceinline__ float post_sample(const bf16* pw, float pb, int C, int lane,
+                                             const bf16* m, int g, int seq) {
+  float s = 0.f;
+  for (int idx = lane; idx < 7 * C; idx += 32) {
+    const int tap = idx / C, c = idx % C, gg = g + tap - 3;
+    const float v = (gg >= 0 && gg < seq) ? bf(lrelu_b(m[(long)gg * C + c], 0.01f)) : 0.f;
+    s = fmaf(v, bf(pw[idx]), s);
+  }
+  for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
+  return tanhf(s + pb);
+}
+
+// One cooperative launch, conv by conv over the whole sequence, a
+// grid-wide barrier between phases. MINB blocks share an SM and hide each
+// other's loads where shared memory allows it (kernel_for picks it by width).
+template <int BN, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) mrf_stage_tc_kernel(Args a) {
+  using T = Tile<BN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int as = a.cpad + kPad;
+  bf16* A = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = A + align8((kBM + a.max_ext) * as);
+  cg::grid_group grid = cg::this_grid();
+  const int C = a.C, seq = a.seq;
+  const long plane = (long)a.batch * seq * C;
+  const int m_tiles = (seq + kBM - 1) / kBM, n_tiles = (C + BN - 1) / BN;
+  const int per_rb = a.batch * m_tiles * n_tiles;
+
+  // buffer codes: 0 = x, 1 and 2 = the resblock's two scratch planes
+  int h_code = 0, prev_code = 0;
+  for (int j = 0; j < a.convs_per_rb; ++j) {
+    const bool first = j % a.pair_size == 0, last = j % a.pair_size == a.pair_size - 1;
+    const int src_code = first ? h_code : prev_code;
+    const int dst_code = src_code == 1 ? 2 : 1;
+    for (int item = blockIdx.x; item < a.n_rb * per_rb; item += gridDim.x) {
+      const int rb = a.n_rb - 1 - item / per_rb;  // the widest kernels first
+      int rest = item % per_rb;
+      const int n0 = (rest % n_tiles) * BN;
+      rest /= n_tiles;
+      const int m0 = (rest % m_tiles) * kBM, b = rest / m_tiles;
+      const int* dsc = a.desc + 3 * (rb * a.convs_per_rb + j);
+      const int k = dsc[0], d = dsc[1], r = (k - 1) * d / 2;
+      const long boff = (long)b * seq * C;
+      bf16* planes = a.scratch + 2L * rb * plane + boff;
+      const bf16* src = src_code == 0 ? a.x + boff : planes + (src_code - 1) * plane;
+      const bf16* res = h_code == 0 ? a.x + boff : planes + (h_code - 1) * plane;
+      bf16* dst = planes + (dst_code - 1) * plane;
+      const int rows = kBM + (k - 1) * d;
+      stage_window(A, as, src, m0 - r, rows, seq, C, a.cpad);
+      float acc[T::MT][4][4];
+      conv_core<BN>(acc, A, as, 0, rows, a.w + dsc[2], k, d, C, a.cpad, a.kc, n0, ring);
+      const bf16* bias = a.bias + (long)(rb * a.convs_per_rb + j) * C;
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int co = n0 + frag_col<BN>(jj);
+          if (co >= C) continue;
+          const float b0 = bf(bias[co]), b1 = bf(bias[co + 1]);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int o = m0 + frag_row<BN>(i, 2 * h2);
+            if (o >= seq) continue;
+            float v0 = rnd(acc[i][jj][2 * h2] + b0), v1 = rnd(acc[i][jj][2 * h2 + 1] + b1);
+            if (last) {
+              const __nv_bfloat162 rv =
+                  *reinterpret_cast<const __nv_bfloat162*>(res + (long)o * C + co);
+              v0 = rnd(bf(rv.x) + v0);
+              v1 = rnd(bf(rv.y) + v1);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(dst + (long)o * C + co) =
+                __halves2bfloat162(tobf(v0), tobf(v1));
+          }
+        }
+    }
+    prev_code = dst_code;
+    if (last) h_code = dst_code;
+    grid.sync();
+  }
+
+  // mean over resblocks, in fp32 and resblock order, rounded once
+  const bool post = a.post_w != nullptr;
+  bf16* mean = post ? a.scratch + 2L * a.n_rb * plane : static_cast<bf16*>(a.y);
+  const float n_rb = static_cast<float>(a.n_rb);
+  for (long e = 2L * (blockIdx.x * (long)kThreads + threadIdx.x); e < plane;
+       e += 2L * gridDim.x * kThreads) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int r = 0; r < a.n_rb; ++r) {
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+          a.scratch + (2L * r + h_code - 1) * plane + e);
+      s0 += bf(v.x);
+      s1 += bf(v.y);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(mean + e) = __halves2bfloat162(tobf(s0 / n_rb), tobf(s1 / n_rb));
+  }
+  if (!post) return;
+  grid.sync();
+  const float pb = bf(a.post_b[0]);
+  float* y = static_cast<float*>(a.y);
+  const int lane = threadIdx.x % 32;
+  const long n_rows = (long)a.batch * seq;
+  for (long row = blockIdx.x * (long)(kThreads / 32) + threadIdx.x / 32; row < n_rows;
+       row += (long)gridDim.x * (kThreads / 32)) {
+    const long b = row / seq;
+    const int t = static_cast<int>(row % seq);
+    const float v = post_sample(a.post_w, pb, C, lane, mean + b * seq * C, t, seq);
+    if (lane == 0) y[row] = v;
+  }
+}
+
+// The kernel for a tiling: at most 255 registers a thread where a block
+// of the 128-column tile fills shared memory alone (cpad > 128), else the
+// register cap that lets 2 (64- and 128-column tiles) or 4 (32) blocks
+// share an SM. On the H100 the 2-block cap speeds up V1's C=128 stage at
+// B=16 by about a quarter, and slows the C=256 one, which a block's shared
+// memory keeps at one block per SM anyway.
+const void* kernel_for(int bn, int cpad) {
+  switch (bn) {
+    case 32: return reinterpret_cast<const void*>(mrf_stage_tc_kernel<32, 4>);
+    case 64: return reinterpret_cast<const void*>(mrf_stage_tc_kernel<64, 2>);
+    case 128:
+      return cpad > 128 ? reinterpret_cast<const void*>(mrf_stage_tc_kernel<128, 1>)
+                        : reinterpret_cast<const void*>(mrf_stage_tc_kernel<128, 2>);
+    default: return nullptr;
+  }
+}
+
+}  // namespace tc
+}  // namespace
+
 extern "C" {
 
 // Shared memory the kernel needs for a stage whose widest conv has
@@ -282,8 +630,8 @@ int hifigan_mrf_stage_smem(int C, int max_k, int max_ext, int* a_floats_out) {
   return (a_floats + max_k * kBK * bn) * static_cast<int>(sizeof(float));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
-int hifigan_mrf_stage(int dtype, const void* x, const void* w, const void* bias,
+// The fp32 SIMT body. Returns the cudaError_t of the launch.
+int hifigan_mrf_stage(const void* x, const void* w, const void* bias,
                       const int* desc, const void* post_w, const void* post_b, void* y,
                       void* scratch, float* acc, int batch, int seq, int C, int n_rb,
                       int convs_per_rb, int pair_size, int tile, int halo, int post_halo,
@@ -310,12 +658,80 @@ int hifigan_mrf_stage(int dtype, const void* x, const void* w, const void* bias,
   a.n_tiles = (seq + tile - 1) / tile;
   const int smem = hifigan_mrf_stage_smem(C, max_k, max_ext, &a.a_floats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = C >= 64;
-  if (dtype == 0) return wide ? launch<float, 64>(a, grid, smem, s) : launch<float, 32>(a, grid, smem, s);
-  if (dtype == 1)
-    return wide ? launch<__nv_bfloat16, 64>(a, grid, smem, s)
-                : launch<__nv_bfloat16, 32>(a, grid, smem, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return C >= 64 ? launch<float, 64>(a, grid, smem, s) : launch<float, 32>(a, grid, smem, s);
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// The tensor-core body's tiling for a width C: output columns per tile
+// (bn), the padded input width (cpad) and input channels per weight chunk
+// (kc). C must be a multiple of 8.
+static void tc_tiling(int C, int* bn, int* cpad, int* kc) {
+  *bn = C <= 32 ? 32 : C <= 64 ? 64 : 128;
+  *cpad = (C + 15) & ~15;
+  *kc = *cpad % 64 == 0 ? 64 : *cpad % 32 == 0 ? 32 : 16;
+}
+
+// Shared memory (bytes) of the tensor-core body for width C and a widest
+// conv extent (k-1)*d of max_ext rows (ops/resblock_tail.py::tc_smem).
+static int tc_stage_smem(int C, int max_ext) {
+  int bn, cpad, kc;
+  tc_tiling(C, &bn, &cpad, &kc);
+  return tc::stage_smem(bn, cpad, kc, max_ext);
+}
+
+// Co-resident blocks per SM of the tensor-core kernel for width C at this
+// shared memory.
+int hifigan_mrf_tc_blocks_per_sm(int C, int smem, int* out) {
+  int bn, cpad, kc;
+  tc_tiling(C, &bn, &cpad, &kc);
+  const void* fn = tc::kernel_for(bn, cpad);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, tc::kThreads, smem);
+  return static_cast<int>(err);
+}
+
+// The bf16 tensor-core body, launched cooperatively: grid at most the
+// co-resident blocks (else cudaErrorCooperativeLaunchTooLarge). smem must be
+// tc_stage_smem's value; scratch holds (2 * n_rb + (post_w != null))
+// planes of batch * seq * C bf16. Returns the cudaError_t of the launch.
+int hifigan_mrf_stage_tc(const void* x, const void* w, const void* bias, const int* desc,
+                         const void* post_w, const void* post_b, void* y, void* scratch,
+                         int batch, int seq, int C, int n_rb, int convs_per_rb, int pair_size,
+                         int max_ext, int grid, int smem, void* stream) {
+  if (C < 8 || C % 8 != 0 || batch < 1 || seq < 1 || grid < 1 || n_rb < 1 ||
+      convs_per_rb < 1 || pair_size < 1 || convs_per_rb % pair_size != 0 ||
+      smem != tc_stage_smem(C, max_ext))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::Args a;
+  a.x = static_cast<const tc::bf16*>(x);
+  a.w = static_cast<const tc::bf16*>(w);
+  a.bias = static_cast<const tc::bf16*>(bias);
+  a.desc = desc;
+  a.post_w = static_cast<const tc::bf16*>(post_w);
+  a.post_b = static_cast<const tc::bf16*>(post_b);
+  a.y = y;
+  a.scratch = static_cast<tc::bf16*>(scratch);
+  a.batch = batch;
+  a.seq = seq;
+  a.C = C;
+  a.n_rb = n_rb;
+  a.convs_per_rb = convs_per_rb;
+  a.pair_size = pair_size;
+  a.max_ext = max_ext;
+  int bn;
+  tc_tiling(C, &bn, &a.cpad, &a.kc);
+  const void* fn = tc::kernel_for(bn, a.cpad);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(tc::kThreads), params,
+                                    static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

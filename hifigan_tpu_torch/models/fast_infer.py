@@ -31,8 +31,9 @@ def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torc
     another; with no GPU that raises). Every stage's MRF runs in the
     kernel: the JAX package's ``max_fused_ch`` / ``min_fused_stage`` exist
     for the TPU's VMEM, and the CUDA kernel takes any width. ``tile`` fixes
-    the kernel's time tile (default: per call, from the batch and the
-    sequence length, see ``auto_tile``). ``fold_up`` (the upsampler folded
+    the fp32 body's time tile (default: per call, from the batch and the
+    sequence length, see ``auto_tile``); the bf16 body walks the whole
+    sequence in one cooperative launch per stage and takes no tile. ``fold_up`` (the upsampler folded
     into the kernel) is not ported.
     """
     if fold_up:

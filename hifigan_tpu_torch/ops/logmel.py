@@ -4,19 +4,24 @@ Replaces ``hifigan_tpu/ops/pallas/logmel.py::fused_log_mel`` (:135; the
 kernel ``_kernel`` :43, Pallas call :101). For the standard geometry
 (n_fft == win_size == 4 * hop, power 2; :func:`supports_fused_log_mel`) it
 maps y (B, T) to (B, num_mels, F): reflect pad (n_fft - hop) / 2 a side,
-frames of n_fft every hop, the Hann-windowed real-DFT basis as a product
-(fp32, no TF32), power, the mel filterbank, log(max(., 1e-5)). Output
-values match :func:`hifigan_tpu_torch.audio.mel.log_mel_spectrogram`.
+frames of n_fft every hop, the Hann-windowed onesided DFT (fp32, no TF32),
+power, the mel filterbank, log(max(., 1e-5)). Output values match
+:func:`hifigan_tpu_torch.audio.mel.log_mel_spectrogram`.
 
 - :func:`fused_log_mel_reference` is the plain PyTorch version: frames @
   windowed basis, power, @ filterbank, log clamp, in fp32.
 - :func:`fused_log_mel` takes the plain version for a CPU tensor; for a
   CUDA tensor the forward launches ``csrc/logmel.cu`` (or raises). The
-  reflect pad and the crop to (F + 3) * hop samples stay in PyTorch, as
-  they are XLA ops outside the Pallas call in JAX. There is no backward
-  kernel: the backward recomputes the plain composition under autograd and
-  pulls the cotangent through it, saving only ``y``, as the JAX custom VJP
-  does (``logmel.py:153-162``).
+  kernel has two bodies, chosen here by ``n_fft`` (:func:`uses_fft`): a
+  power of two up to 2048 (every shipped config) takes the FFT body (an
+  n_fft-point Stockham FFT per pair of frames in shared memory, the
+  twiddles of :func:`fft_tables`, the sparse filterbank of
+  :func:`sparse_filterbank`); any other admitted geometry the dense body
+  (the windowed basis as a product). The reflect pad and the crop to
+  (F + 3) * hop samples stay in PyTorch, as they are XLA ops outside the
+  Pallas call in JAX. There is no backward kernel: the backward recomputes
+  the plain composition under autograd and pulls the cotangent through it,
+  saving only ``y``, as the JAX custom VJP does (``logmel.py:153-162``).
 - ``LAUNCHES`` counts kernel launches.
 """
 
@@ -30,10 +35,11 @@ import torch
 import torch.nn.functional as F
 
 from hifigan_tpu_torch.audio.mel import MelConfig, mel_filterbank
-from hifigan_tpu_torch.audio.stft import windowed_rdft_basis
+from hifigan_tpu_torch.audio.stft import hann_window, windowed_rdft_basis
 
 LAUNCHES = 0
 LOG_CLIP = 1e-5
+FFT_MAX_N = 2048  # the FFT body's two ping-pong buffers fit shared memory up to here
 
 
 def supports_fused_log_mel(cfg: MelConfig) -> bool:
@@ -49,13 +55,55 @@ def _tables(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray]:
     return windowed_rdft_basis(cfg.n_fft, cfg.win_size), fb
 
 
+def uses_fft(cfg: MelConfig) -> bool:
+    """Whether the kernel takes its FFT body (else the dense one): n_fft a
+    power of two in [4, FFT_MAX_N]."""
+    n = cfg.n_fft
+    return 4 <= n <= FFT_MAX_N and n & (n - 1) == 0
+
+
+def fft_passes(n_fft: int) -> list[int]:
+    """The FFT body's radices in pass order: radix 2 first when log2 n_fft
+    is odd, then radix 4."""
+    log2n = n_fft.bit_length() - 1
+    return [2] * (log2n % 2) + [4] * (log2n // 2)
+
+
+def sparse_filterbank(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each mel's contiguous range of nonzero bins: (index (3, mels) int32 of
+    first bin, count and offset into the weights; the weights, fp32)."""
+    idx, vals = [], []
+    off = 0
+    for m in range(fb.shape[1]):
+        nz = np.flatnonzero(fb[:, m])
+        k0, cnt = (int(nz[0]), int(nz[-1]) - int(nz[0]) + 1) if nz.size else (0, 0)
+        idx.append((k0, cnt, off))
+        vals.append(fb[k0:k0 + cnt, m])
+        off += cnt
+    return (np.ascontiguousarray(np.array(idx, dtype=np.int32).T),
+            np.concatenate(vals).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def fft_tables(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The FFT body's tables: Hann window (n_fft,) fp32, twiddles
+    exp(-2 pi i m / n_fft) as (n_fft, 2) fp32 computed in float64, and the
+    sparse filterbank (:func:`sparse_filterbank`)."""
+    n = cfg.n_fft
+    phase = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    twiddle = np.stack([np.cos(phase), np.sin(phase)], axis=1).astype(np.float32)
+    idx, vals = sparse_filterbank(_tables(cfg)[1])
+    return hann_window(n), twiddle, idx, vals
+
+
 _DEVICE_TABLES: dict = {}
 
 
-def _device_tables(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def _device_tables(cfg: MelConfig, device: torch.device) -> tuple[torch.Tensor, ...]:
     key = (cfg, device)
     if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES[key] = tuple(torch.from_numpy(t).to(device) for t in _tables(cfg))
+        tables = fft_tables(cfg) if uses_fft(cfg) else _tables(cfg)
+        _DEVICE_TABLES[key] = tuple(torch.from_numpy(t).to(device) for t in tables)
     return _DEVICE_TABLES[key]
 
 
@@ -88,34 +136,45 @@ def fused_log_mel_reference(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
 # CUDA path
 # ---------------------------------------------------------------------------
 
-_KERNEL = None  # the ctypes entry of csrc/logmel.cu, signature set once
+_KERNELS = None  # the ctypes entries of csrc/logmel.cu, signatures set once
 
 
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
+def _kernels():
+    global _KERNELS
+    if _KERNELS is None:
         from hifigan_tpu_torch.ops import _build
 
-        fn = _build.load("logmel").hifigan_logmel
+        lib = _build.load("logmel")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 4 + [ci] * 7 + [vp]
-        fn.restype = ci
-        _KERNEL = fn
-    return _KERNEL
+        dense, fft = lib.hifigan_logmel, lib.hifigan_logmel_fft
+        dense.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        fft.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+        dense.restype = fft.restype = ci
+        _KERNELS = {"dense": dense, "fft": fft}
+    return _KERNELS
 
 
 def _launch(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     global LAUNCHES
     yp, frames = _pad_crop(y, cfg)
     yp = yp.contiguous()
-    basis, fb = _device_tables(cfg, y.device)
+    tables = _device_tables(cfg, y.device)
     n_bins = cfg.n_fft // 2 + 1
     out = torch.empty((y.shape[0], cfg.num_mels, frames), dtype=torch.float32, device=y.device)
-    rc = _kernel()(yp.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(), y.shape[0],
-                   frames, yp.shape[1], cfg.hop_size, cfg.n_fft, n_bins, cfg.num_mels,
-                   torch.cuda.current_stream(y.device).cuda_stream)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    if uses_fft(cfg):
+        window, twiddle, idx, vals = tables
+        rc = _kernels()["fft"](yp.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+                               idx.data_ptr(), vals.data_ptr(), out.data_ptr(), y.shape[0],
+                               frames, yp.shape[1], cfg.hop_size, cfg.n_fft, cfg.num_mels, stream)
+    else:
+        basis, fb = tables
+        rc = _kernels()["dense"](yp.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
+                                 y.shape[0], frames, yp.shape[1], cfg.hop_size, cfg.n_fft,
+                                 n_bins, cfg.num_mels, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_log_mel kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"fused_log_mel kernel launch failed "
+                           f"({'fft' if uses_fft(cfg) else 'dense'} body): cudaError {rc}")
     LAUNCHES += 1
     return out
 

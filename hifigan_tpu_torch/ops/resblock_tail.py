@@ -12,10 +12,18 @@ C->1 -> tanh) into the same pass and returns (B, T, 1) float32.
 
 The kernel (``csrc/resblock_tail.cu``) is bound by arithmetic: a V1 request
 of 256 mel frames at B=1 does about 152 GFLOP of MRF work, and the source
-note there says what the design does about that. The TPU kernel's
-time-blocked tables, lane folding and VMEM split heuristic are not carried
-over: the CUDA kernel takes the plain per-conv taps (K, C, C) and each conv's
-dilation, packed once on the host by :func:`pack_generator_tail`.
+note there says what the design does about that. It has two bodies, chosen
+by dtype: fp32 keeps a SIMT body over time tiles plus halo (TF32 would
+break the 1e-4 parity); bf16, the served path, runs the convs on the tensor
+cores in one cooperative launch per stage that walks the whole sequence
+conv by conv, a grid-wide barrier between convs and the activations in
+device-memory ping-pong buffers: no halo recompute, every SM busy at B=1.
+:func:`plan_tail_stage` sizes either on the host.
+
+The TPU kernel's time-blocked tables, lane folding and VMEM split heuristic
+are not carried over: the CUDA kernel takes the plain per-conv taps
+(K, C, C) and each conv's dilation, packed once on the host by
+:func:`pack_generator_tail`.
 
 - :func:`fused_tail_stage_reference` is the plain PyTorch version (conv by
   conv with ``F.conv1d``, fp32 accumulation).
@@ -36,7 +44,7 @@ from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, leaky_relu
 
 LAUNCHES = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _POST_K = 7
 
 
@@ -156,10 +164,11 @@ def fused_tail_stage_reference(x: torch.Tensor, packed: dict,
 
 
 def auto_tile(batch: int, seq: int, min_items: int = 128) -> int:
-    """Time tile: the largest of 256..32 that still gives ``min_items`` work items.
+    """Time tile of the fp32 SIMT body: the largest of 256..32 that still
+    gives ``min_items`` work items.
 
     A larger tile recomputes less halo per output row, more items fill more
-    SMs (one resident block per SM at this kernel's register count). The
+    SMs (one resident block per SM at that body's register count). The
     default of 128 items was tuned on the H100 (132 SMs): there the largest
     tile with about one item per SM measured fastest at every V1 stage but
     stage 0 at B=1, which takes the smallest. It does not read the card.
@@ -170,20 +179,90 @@ def auto_tile(batch: int, seq: int, min_items: int = 128) -> int:
     return tile
 
 
-_KERNEL = None  # the ctypes entry of csrc/resblock_tail.cu, its signature set once
+# The tensor-core body's geometry, as csrc/resblock_tail.cu has it.
+TC_BM = 128          # output rows of a conv tile
+TC_STAGES = 3        # cp.async ring of weight chunks
+TC_PAD = 8           # bf16 elements of padding per shared-memory row
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB)
 
 
-def _kernel():
-    global _KERNEL
-    if _KERNEL is None:
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def tc_tiling(c: int) -> tuple[int, int, int]:
+    """(output columns per tile, padded input width, input channels per
+    weight chunk) of the tensor-core body for width ``c``."""
+    cpad = _round_up(c, 16)
+    bn = 32 if c <= 32 else 64 if c <= 64 else 128
+    kc = next(k for k in (64, 32, 16) if cpad % k == 0)
+    return bn, cpad, kc
+
+
+def tc_smem(c: int, max_ext: int) -> int:
+    """Shared memory (bytes) of the tensor-core body (``tc_stage_smem`` in the source):
+    the operand window of 128 + max_ext rows and the weight ring."""
+    bn, cpad, kc = tc_tiling(c)
+    return (_round_up((TC_BM + max_ext) * (cpad + TC_PAD), 8) * 2
+            + TC_STAGES * kc * (bn + TC_PAD) * 2)
+
+
+def plan_tail_stage(packed: dict, batch: int, seq: int, dtype: torch.dtype, post: bool,
+                    sm_count: int, blocks_per_sm, tile: int | None = None) -> dict:
+    """How one stage call runs on the card, decided on the host.
+
+    ``blocks_per_sm(channels, smem)`` gives the co-resident blocks per SM
+    (the card's occupancy query in the wrapper). Returns ``body`` ('simt'
+    for fp32, 'tensor_core' for bf16), ``schedule`` ('tiled': time tiles
+    plus halo, or 'cooperative': conv by conv over the whole sequence),
+    ``tile`` (the time tile, or the 128-row conv tile), ``grid``, ``smem``
+    (bytes; None for the SIMT body, which sizes its own), ``items`` (work
+    items, of the busiest phase for the cooperative schedule) and
+    ``scratch`` (elements of device scratch). ``tile`` fixes the SIMT body's.
+    """
+    c = packed["channels"]
+    hp = (_POST_K - 1) // 2 if post else 0
+    if dtype == torch.float32:
+        tile = tile or auto_tile(batch, seq)
+        items = batch * -(-seq // tile)
+        grid = min(items, 2 * sm_count)
+        return {"body": "simt", "schedule": "tiled", "tile": tile, "grid": grid, "smem": None,
+                "items": items, "scratch": grid * 2 * (tile + 2 * (packed["halo"] + hp)) * c}
+    if c % 8:
+        raise ValueError(f"the bf16 body takes widths that are multiples of 8, got {c}")
+    max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
+    smem = tc_smem(c, max_ext)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the bf16 body needs {smem} bytes of shared memory at C={c}, more "
+                         f"than {SMEM_LIMIT}")
+    items = packed["n_rb"] * batch * -(-seq // TC_BM) * -(-c // tc_tiling(c)[0])
+    grid = min(items, blocks_per_sm(c, smem) * sm_count)
+    planes = 2 * packed["n_rb"] + (1 if post else 0)
+    return {"body": "tensor_core", "schedule": "cooperative", "tile": TC_BM, "grid": grid,
+            "smem": smem, "items": items, "scratch": planes * batch * seq * c}
+
+
+_KERNELS = None  # the ctypes entries of csrc/resblock_tail.cu, their signatures set once
+
+
+def _kernels():
+    global _KERNELS
+    if _KERNELS is None:
         from hifigan_tpu_torch.ops import _build
 
-        fn = _build.load("resblock_tail").hifigan_mrf_stage
-        vp = ctypes.c_void_p
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [vp] * 9 + [ctypes.c_int] * 12 + [vp]
-        _KERNEL = fn
-    return _KERNEL
+        lib = _build.load("resblock_tail")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        simt = lib.hifigan_mrf_stage
+        simt.restype = ci
+        simt.argtypes = [vp] * 9 + [ci] * 12 + [vp]
+        tc = lib.hifigan_mrf_stage_tc
+        tc.restype = ci
+        tc.argtypes = [vp] * 8 + [ci] * 9 + [vp]
+        occ = lib.hifigan_mrf_tc_blocks_per_sm
+        occ.restype = ci
+        occ.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        _KERNELS = {"simt": simt, "tc": tc, "occupancy": occ}
+    return _KERNELS
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,10 +270,21 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(device_index: int, c: int, smem: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _kernels()["occupancy"](c, smem, ctypes.byref(out))
+    if rc != 0 or out.value < 1:
+        raise RuntimeError(f"fused_tail_stage: occupancy query failed (cudaError {rc}, "
+                           f"{out.value} blocks per SM at {smem} bytes of shared memory)")
+    return out.value
+
+
 def _check(x: torch.Tensor, packed: dict, post_pack: dict | None) -> None:
     if x.dim() != 3 or x.shape[2] != packed["channels"]:
         raise ValueError(f"x must be (B, T, {packed['channels']}), got {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
@@ -214,7 +304,8 @@ def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = Non
     """x (B, T, C) -> the stage's MRF output (B, T, C), or (B, T, 1) float32 with post_pack.
 
     A CPU tensor takes :func:`fused_tail_stage_reference`; a CUDA tensor
-    launches the kernel (or raises).
+    launches the kernel (or raises). ``tile`` fixes the fp32 body's time
+    tile (default :func:`auto_tile`); the bf16 body walks the whole sequence.
     """
     global LAUNCHES
     if x.device.type == "cpu":
@@ -222,33 +313,41 @@ def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = Non
     if x.device.type != "cuda":
         raise ValueError(f"fused_tail_stage runs on cpu or cuda, got {x.device}")
     _check(x, packed, post_pack)
-    fn = _kernel()
+    kernels = _kernels()
     b, t, c = x.shape
-    tile = tile or auto_tile(b, t)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = plan_tail_stage(packed, b, t, x.dtype, post_pack is not None, _sm_count(dev),
+                           functools.partial(_blocks_per_sm, dev), tile=tile)
     hp = (_POST_K - 1) // 2 if post_pack is not None else 0
     halo = packed["halo"] + hp
-    n_items = b * -(-t // tile)
-    grid = min(n_items, 2 * _sm_count(x.device.index))
-    work = tile + 2 * halo
-    scratch = torch.empty(grid * 2 * work * c, dtype=x.dtype, device=x.device)
-    acc = torch.empty(grid * (tile + 2 * hp) * c, dtype=torch.float32, device=x.device)
     if post_pack is not None:
         y = torch.empty((b, t, 1), dtype=torch.float32, device=x.device)
     else:
         y = torch.empty_like(x)
     max_k = max(k for k, _, _ in packed["convs"])
     max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
+    post_w = post_pack["w"].data_ptr() if post_pack is not None else None
+    post_b = post_pack["bias"].data_ptr() if post_pack is not None else None
+    scratch = torch.empty(plan["scratch"], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = fn(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), packed["w"].data_ptr(),
-            packed["bias"].data_ptr(), packed["desc"].data_ptr(),
-            post_pack["w"].data_ptr() if post_pack is not None else None,
-            post_pack["bias"].data_ptr() if post_pack is not None else None,
-            y.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
-            b, t, c, packed["n_rb"], packed["convs_per_rb"], packed["pair_size"], tile, halo, hp,
-            max_k, max_ext, grid, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan["body"] == "simt":
+            acc = torch.empty(plan["grid"] * (plan["tile"] + 2 * hp) * c, dtype=torch.float32,
+                              device=x.device)
+            rc = kernels["simt"](
+                x.data_ptr(), packed["w"].data_ptr(),
+                packed["bias"].data_ptr(), packed["desc"].data_ptr(), post_w, post_b,
+                y.data_ptr(), scratch.data_ptr(), acc.data_ptr(), b, t, c, packed["n_rb"],
+                packed["convs_per_rb"], packed["pair_size"], plan["tile"], halo, hp, max_k,
+                max_ext, plan["grid"], stream)
+        else:
+            rc = kernels["tc"](
+                x.data_ptr(), packed["w"].data_ptr(), packed["bias"].data_ptr(),
+                packed["desc"].data_ptr(), post_w, post_b, y.data_ptr(), scratch.data_ptr(), b,
+                t, c, packed["n_rb"], packed["convs_per_rb"], packed["pair_size"], max_ext,
+                plan["grid"], plan["smem"], stream)
     if rc != 0:
-        raise RuntimeError(f"fused_tail_stage kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"fused_tail_stage kernel launch failed ({plan['body']} body): "
+                           f"cudaError {rc}")
     LAUNCHES += 1
     return y

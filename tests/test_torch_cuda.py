@@ -62,6 +62,38 @@ def test_kernel_matches_plain_fp32(no_tf32, resblock, stage, post, seq, tile):
     assert (got - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("name,stage,post,seq,batch", [
+    ("v1", 0, False, 300, 1),    # C=256: two 128-column tiles per row tile
+    ("v1", 1, False, 777, 3),    # C=128, ragged last row tile
+    ("v1", 2, False, 2048, 1),   # C=64
+    ("v1", 3, True, 1000, 3),    # C=32, post conv folded
+    ("v2", 2, False, 259, 3),    # C=16
+    ("v2", 3, True, 130, 1),     # C=8: input padded to 16, post conv folded
+    ("v3", 0, False, 500, 3),    # ResBlock2 chains, C=128
+    ("v3", 2, True, 333, 1),     # ResBlock2, C=32, post conv folded
+])
+def test_kernel_matches_plain_bf16(card, no_tf32, name, stage, post, seq, batch):
+    """The tensor-core body (one cooperative launch per stage) against its
+    plain version within 2^-4 of the plain version's peak, as chip_smoke.py
+    holds it."""
+    h = get_config(name)
+    sd = _state(h)
+    packed = ttail.pack_generator_tail(h, sd, stage, dtype=torch.bfloat16, device=card)
+    post_pack = ttail.prepare_post(sd, dtype=torch.bfloat16, device=card) if post else None
+    g = torch.Generator(device=card).manual_seed(stage)
+    x = (torch.randn((batch, seq, packed["channels"]), device=card, generator=g) * 0.5)
+    x = x.to(torch.bfloat16)
+    launches = ttail.LAUNCHES
+    got = ttail.fused_tail_stage(x, packed, post_pack=post_pack)
+    torch.cuda.synchronize()
+    assert ttail.LAUNCHES == launches + 1
+    ref = ttail.fused_tail_stage_reference(x, packed, post_pack)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert bool(torch.isfinite(got).all())
+    peak = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2.0 ** -4 * peak
+
+
 @requires_cuda
 def test_fast_vocoder_launches_kernel_per_stage(no_tf32):
     h = _config("1", 128)
@@ -318,6 +350,47 @@ def test_log_mel_kernel_matches_plain(card, no_tf32, t):
 
     cfg = MelConfig()
     y = (torch.randn((3, t), device=card, generator=torch.Generator(device=card).manual_seed(t))
+         * 0.3).clamp(-1, 1)
+    launches = tlogmel.LAUNCHES
+    yk = y.clone().requires_grad_()
+    got = tlogmel.fused_log_mel(yk, cfg)
+    torch.cuda.synchronize()
+    assert tlogmel.LAUNCHES == launches + 1
+    yp = y.clone().requires_grad_()
+    want = tlogmel.fused_log_mel_reference(yp, cfg)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
+    (gk,) = torch.autograd.grad(torch.sin(got).sum(), yk)
+    (gp,) = torch.autograd.grad(torch.sin(want).sum(), yp)
+    assert (gk - gp).abs().max().item() <= 1e-4 * gp.abs().max().item()
+
+
+@pytest.mark.parametrize("n_fft", [512, 2048])
+def test_log_mel_fft_body_radix2_sizes_match_plain(card, no_tf32, n_fft):
+    """The FFT body with its radix-2 first pass (log2 n_fft odd) against
+    the plain version, forward within 2e-4 + 1e-4 |plain|."""
+    from hifigan_tpu_torch.audio.mel import MelConfig
+    from hifigan_tpu_torch.ops import logmel as tlogmel
+
+    cfg = MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+    assert tlogmel.uses_fft(cfg) and tlogmel.fft_passes(n_fft)[0] == 2
+    y = (torch.randn((3, 20 * n_fft + 77), device=card,
+                     generator=torch.Generator(device=card).manual_seed(n_fft)) * 0.3).clamp(-1, 1)
+    got = tlogmel.fused_log_mel(y, cfg)
+    want = tlogmel.fused_log_mel_reference(y, cfg)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
+
+
+def test_log_mel_dense_body_matches_plain(card, no_tf32):
+    """A geometry whose n_fft is not a power of two (1200 / 300) keeps the
+    dense-DFT body: forward and gradient against the plain version."""
+    from hifigan_tpu_torch.audio.mel import MelConfig
+    from hifigan_tpu_torch.ops import logmel as tlogmel
+
+    cfg = MelConfig(n_fft=1200, win_size=1200, hop_size=300)
+    assert tlogmel.supports_fused_log_mel(cfg) and not tlogmel.uses_fft(cfg)
+    y = (torch.randn((3, 9000), device=card, generator=torch.Generator(device=card).manual_seed(3))
          * 0.3).clamp(-1, 1)
     launches = tlogmel.LAUNCHES
     yk = y.clone().requires_grad_()

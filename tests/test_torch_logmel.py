@@ -20,6 +20,7 @@ from hifigan_tpu.audio.mel import MelConfig as JaxMelConfig
 from hifigan_tpu.audio.mel import log_mel_spectrogram as jax_log_mel
 from hifigan_tpu.ops.pallas.logmel import fused_log_mel as jax_fused_log_mel
 from hifigan_tpu_torch.audio import mel as tmel
+from hifigan_tpu_torch.audio.stft import hann_window
 from hifigan_tpu_torch.ops import logmel as tlogmel
 
 ATOL, RTOL = 2e-4, 1e-4  # tests/test_pallas_logmel.py:26
@@ -97,3 +98,97 @@ def test_cuda_backward_recomputes_the_plain_composition():
     (want,) = torch.autograd.grad(tlogmel.fused_log_mel_reference(yt, tmel.MelConfig()), yt, g)
     assert none is None
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
+    """The kernel's FFT body in numpy complex64: frames 2q and 2q+1
+    windowed into one complex sequence, the Stockham passes of
+    ``fft_passes`` (butterfly j reads j + r n/R, twiddles by the table's
+    entry r (j % ns) n/(ns R), writes (j - j % ns) R + j % ns + r ns), the
+    real split into both frames' power, the sparse filterbank, the log
+    clamp. Returns (B, mels, F)."""
+    window, twiddle, idx, vals = tlogmel.fft_tables(cfg)
+    tw = (twiddle[:, 0] + 1j * twiddle[:, 1]).astype(np.complex64)
+    yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
+    n, hop = cfg.n_fft, cfg.hop_size
+    fr = np.stack([yp.numpy()[:, f * hop:f * hop + n] for f in range(frames)], axis=1) * window
+    if frames % 2:
+        fr = np.concatenate([fr, np.zeros_like(fr[:, :1])], axis=1)
+    src = (fr[:, 0::2] + 1j * fr[:, 1::2]).astype(np.complex64)
+    ns = 1
+    for radix in tlogmel.fft_passes(n):
+        j = np.arange(n // radix)
+        jm = j % ns
+        v = [src[..., j + r * (n // radix)] * tw[r * jm * (n // (ns * radix))]
+             for r in range(radix)]
+        if radix == 2:
+            out = [v[0] + v[1], v[0] - v[1]]
+        else:
+            a, b, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
+            out = [a + c, b - 1j * d, a - c, b + 1j * d]
+        dst = np.empty_like(src)
+        for r in range(radix):
+            dst[..., (j - jm) * radix + jm + r * ns] = out[r]
+        src, ns = dst, ns * radix
+    k = np.arange(n // 2 + 1)
+    zk, zn = src[..., k], src[..., (n - k) % n]
+    pa = 0.25 * ((zk.real + zn.real) ** 2 + (zk.imag - zn.imag) ** 2)
+    pb = 0.25 * ((zk.real - zn.real) ** 2 + (zk.imag + zn.imag) ** 2)
+    power = np.stack([pa, pb], axis=2).reshape(y.shape[0], -1, n // 2 + 1)[:, :frames]
+    mel = np.stack([power[..., k0:k0 + cnt] @ vals[off:off + cnt] for k0, cnt, off in idx.T],
+                   axis=1)
+    return np.log(np.maximum(mel, tlogmel.LOG_CLIP)).astype(np.float32)
+
+
+def test_fft_body_emulation_matches_the_pallas_kernel_in_interpret_mode():
+    """The FFT body's arithmetic against the JAX kernel (interpret mode) at
+    the V1 geometry, within that test's 2e-4 + 1e-4 |ref|."""
+    y = _wave(1, 2048 + 113, 4)
+    want = np.asarray(jax_fused_log_mel(jnp.asarray(y), JAX_MATMUL, interpret=True))
+    got = _emulate_fft_body(y, tmel.MelConfig())
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_fft_body_emulation_matches_rfft(n_fft):
+    """Radix 2 then 4 (512, 2048) or radix 4 only (1024), an odd frame
+    count: the emulated log-mel against rfft's power through the dense
+    filterbank, within 2e-4 + 1e-4 |ref|."""
+    cfg = tmel.MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+    assert tlogmel.uses_fft(cfg)
+    assert tlogmel.fft_passes(n_fft) == {512: [2, 4, 4, 4, 4], 1024: [4] * 5,
+                                         2048: [2] + [4] * 5}[n_fft]
+    y = _wave(2, 7 * n_fft // 4 + 37, n_fft)
+    yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
+    assert frames % 2 == 1
+    spec = torch.fft.rfft(yp.unfold(-1, n_fft, n_fft // 4).double()
+                          * torch.from_numpy(hann_window(n_fft, np.float64)), dim=-1)
+    fb = torch.from_numpy(tlogmel._tables(cfg)[1]).double()
+    want = torch.log(torch.clamp(spec.abs() ** 2 @ fb, min=tlogmel.LOG_CLIP)).transpose(1, 2)
+    np.testing.assert_allclose(_emulate_fft_body(y, cfg), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("mel_scale,norm", [("htk", None), ("slaney", "slaney")])
+def test_sparse_filterbank_rebuilds_the_dense_one(mel_scale, norm):
+    """Each mel's contiguous range of nonzero bins, rebuilt dense, equals
+    ``mel_filterbank`` (729 weights at the default HTK geometry)."""
+    fb = tmel.mel_filterbank(22050, 1024, 80, 0, 8000, mel_scale, norm)
+    idx, vals = tlogmel.sparse_filterbank(fb)
+    assert idx.shape == (3, 80) and idx.dtype == np.int32 and vals.dtype == np.float32
+    dense = np.zeros_like(fb)
+    for m, (k0, cnt, off) in enumerate(idx.T):
+        dense[k0:k0 + cnt, m] = vals[off:off + cnt]
+    np.testing.assert_array_equal(dense, fb)
+    assert vals.size == np.count_nonzero(fb)
+    assert vals.size == {"htk": 729, "slaney": 727}[mel_scale]
+
+
+def test_body_choice_follows_n_fft():
+    """A power-of-two n_fft up to 2048 takes the FFT body; any other
+    geometry the gate admits keeps the dense one."""
+    assert tlogmel.uses_fft(tmel.MelConfig())
+    assert tlogmel.uses_fft(tmel.MelConfig(n_fft=2048, win_size=2048, hop_size=512))
+    dense = tmel.MelConfig(n_fft=1200, win_size=1200, hop_size=300)
+    assert tlogmel.supports_fused_log_mel(dense) and not tlogmel.uses_fft(dense)
+    assert not tlogmel.uses_fft(tmel.MelConfig(n_fft=4096, win_size=4096, hop_size=1024))

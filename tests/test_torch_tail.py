@@ -9,9 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hifigan_tpu.ops.pallas import resblock_tail as jtail
+from hifigan_tpu_torch import config as tconfig
 from hifigan_tpu_torch.ops import resblock_tail as ttail
+from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, leaky_relu
 from tests.torch_port_helpers import folded_pair, small_config
 
 
@@ -54,3 +57,140 @@ def test_auto_tile():
     # V1 stages of a 256-frame request at B=1: 2048, 16384, 32768, 65536 samples
     assert [ttail.auto_tile(1, t) for t in (2048, 16384, 32768, 65536)] == [32, 128, 256, 256]
     assert [ttail.auto_tile(16, t) for t in (2048, 16384)] == [256, 256]
+
+
+def _stage_meta(name: str, stage: int) -> dict:
+    """Stage ``stage`` of a shipped config packed with uninitialised weights:
+    the plan reads only the widths, taps and dilations."""
+    h = tconfig.get_config(name)
+    c = h["upsample_initial_channel"] // 2 ** (stage + 1)
+    is_rb1 = str(h["resblock"]) == "1"
+    convs = []
+    for k, dils in zip(h["resblock_kernel_sizes"], h["resblock_dilation_sizes"]):
+        rb = []
+        for d in dils:
+            rb.append((torch.empty(c, c, k), torch.zeros(c), d))
+            if is_rb1:
+                rb.append((torch.empty(c, c, k), torch.zeros(c), 1))
+        convs.append(rb)
+    return ttail.prepare_tail_stage(convs, 2 if is_rb1 else 1)
+
+
+def _two_per_sm(c, smem):
+    return max(1, min(2, ttail.SMEM_LIMIT // smem))
+
+
+@pytest.mark.parametrize("name", ["v1", "v2", "v3"])
+def test_plan_every_shipped_stage(name):
+    """The host plan of every V1, V2 and V3 stage at B=1..16: bf16 takes the
+    tensor-core body's cooperative schedule, its grid fits the co-resident
+    blocks and the busiest phase, its shared memory fits 227 KB; fp32 takes
+    the SIMT body's time tiles. Lengths of a 256-frame request, a ragged
+    one and one shorter than a tile."""
+    h = tconfig.get_config(name)
+    t = 256
+    for stage, u in enumerate(h["upsample_rates"]):
+        t *= u
+        packed = _stage_meta(name, stage)
+        c = packed["channels"]
+        post = stage == len(h["upsample_rates"]) - 1
+        for batch in (1, 3, 16):
+            for seq in (t, t - 7, 50):
+                plan = ttail.plan_tail_stage(packed, batch, seq, torch.bfloat16, post, 132,
+                                             _two_per_sm)
+                items = packed["n_rb"] * batch * -(-seq // 128) * -(-c // ttail.tc_tiling(c)[0])
+                assert plan["body"] == "tensor_core" and plan["schedule"] == "cooperative"
+                assert plan["smem"] <= ttail.SMEM_LIMIT
+                assert plan["items"] == items and plan["tile"] == 128
+                assert plan["grid"] == min(items, _two_per_sm(c, plan["smem"]) * 132)
+                assert plan["scratch"] == (2 * packed["n_rb"] + post) * batch * seq * c
+                f32 = ttail.plan_tail_stage(packed, batch, seq, torch.float32, post, 132,
+                                            _two_per_sm)
+                assert f32["body"] == "simt" and f32["tile"] == ttail.auto_tile(batch, seq)
+                assert f32["grid"] == min(batch * -(-seq // f32["tile"]), 264)
+
+
+def test_plan_tiling_and_shared_memory():
+    """The tensor-core tiling per width (V2's C = 16 and 8 pad the input to
+    16) and the shared memory of V1 stage 0: a (128 + 50)-row window of
+    264-element rows and a 3-slot ring of 64 x 136 weights, in bytes."""
+    assert [ttail.tc_tiling(c) for c in (256, 128, 64, 32, 16, 8, 40)] == [
+        (128, 256, 64), (128, 128, 64), (64, 64, 64), (32, 32, 32), (32, 16, 16),
+        (32, 16, 16), (64, 48, 16)]
+    packed = _stage_meta("v1", 0)
+    plan = ttail.plan_tail_stage(packed, 1, 2048, torch.bfloat16, False, 132, lambda c, s: 1)
+    assert plan["smem"] == (128 + 50) * 264 * 2 + 3 * 64 * 136 * 2 == 146208
+    assert plan["items"] == 3 * 16 * 2 and plan["grid"] == 96  # every resblock's tiles at once
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ttail.plan_tail_stage(dict(packed, channels=12), 1, 64, torch.bfloat16, False, 132,
+                              _two_per_sm)
+    with pytest.raises(ValueError, match="shared memory"):
+        ttail.plan_tail_stage(dict(packed, channels=1024), 1, 64, torch.bfloat16, False, 132,
+                              _two_per_sm)
+
+
+def _cooperative_emulation(x: torch.Tensor, packed: dict, post_pack: dict | None) -> torch.Tensor:
+    """The tensor-core body's schedule on the CPU, in the kernel's order:
+    phase j runs conv j of every resblock (widest first) in 128-row tiles,
+    each tile's operand the lrelu'd, masked window of 128 + (k-1)*d rows
+    of its source; sources, residuals and outputs by the kernel's buffer
+    codes (0 = x, 1 and 2 = the resblock's planes; a pair's last conv
+    updates h in place); then the fp32 mean and the post conv."""
+    dtype, (b, t, c) = x.dtype, x.shape
+    per, ps, n_rb = packed["convs_per_rb"], packed["pair_size"], packed["n_rb"]
+    planes = [{0: x} for _ in range(n_rb)]
+    h_code = prev_code = 0
+    for j in range(per):
+        first, last = j % ps == 0, j % ps == ps - 1
+        src_code = h_code if first else prev_code
+        dst_code = 2 if src_code == 1 else 1
+        for rb in reversed(range(n_rb)):
+            k, d, off = packed["convs"][rb * per + j]
+            r = (k - 1) * d // 2
+            kio = packed["w"][off:off + k * c * c].view(k, c, c)
+            src, res = planes[rb][src_code], planes[rb][h_code]
+            out = torch.empty_like(x) if dst_code not in planes[rb] else planes[rb][dst_code]
+            for m0 in range(0, t, ttail.TC_BM):
+                rows = torch.arange(m0 - r, m0 + ttail.TC_BM + r)
+                inside = (rows >= 0) & (rows < t)
+                win = torch.zeros((b, rows.numel(), c), dtype=dtype)
+                win[:, inside] = src[:, rows[inside]]
+                acc = F.conv1d(leaky_relu(win, LRELU_SLOPE).transpose(1, 2).float(),
+                               kio.float().permute(2, 1, 0), dilation=d)
+                v = (acc + packed["bias"][rb * per + j].float()[:, None]).to(dtype)
+                v = v.transpose(1, 2)[:, : t - m0]
+                if last:
+                    v = (res[:, m0:m0 + v.shape[1]] + v).to(dtype)
+                out[:, m0:m0 + v.shape[1]] = v
+            planes[rb][dst_code] = out
+        prev_code = dst_code
+        if last:
+            h_code = dst_code
+    acc = None
+    for rb in range(n_rb):
+        acc = planes[rb][h_code].float() if acc is None else acc + planes[rb][h_code].float()
+    mean = (acc / n_rb).to(dtype)
+    if post_pack is None:
+        return mean
+    wav = F.conv1d(leaky_relu(mean.transpose(1, 2), 0.01).float(),
+                   post_pack["w"].float().t()[None], post_pack["bias"].float(), padding=3)
+    return torch.tanh(wav).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("resblock,stage,post,seq", [("1", 0, False, 300), ("1", 1, True, 259),
+                                                     ("2", 1, True, 130)])
+def test_cooperative_schedule_emulation_equals_the_plain_version(resblock, stage, post, seq):
+    """The bf16 body's tiling, masks and buffer rotation (ResBlock1 pairs
+    updating h in place, ResBlock2's single convs) give exactly the plain
+    version's values, in bf16, ragged last tile included."""
+    h = small_config(resblock)
+    _, sd = folded_pair(h)
+    ch = h["upsample_initial_channel"] // (2 ** (stage + 1))
+    x = torch.from_numpy(np.random.default_rng(stage).standard_normal((2, seq, ch)) * 0.5)
+    x = x.to(torch.bfloat16)
+    packed = ttail.pack_generator_tail(h, sd, stage, dtype=torch.bfloat16)
+    post_pack = ttail.prepare_post(sd, dtype=torch.bfloat16) if post else None
+    want = ttail.fused_tail_stage_reference(x, packed, post_pack)
+    got = _cooperative_emulation(x, packed, post_pack)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0)
