@@ -14,16 +14,37 @@ into the git-ignored ``build/kernels``), then:
    cooperative launch per stage) within BF16_REL_TOL of the plain
    version's peak (see below), and V2's four stages (C 64 to 8) at B=1 in
    bf16; prints each call's plan (body, schedule, grid, tile), errors,
-   times and TFLOP/s, and the bf16 stages' sum per V1 request at each batch
-   beside the cuDNN chain's;
+   times and TFLOP/s, and the stages' sum per V1 request at each batch
+   beside the cuDNN chain's (bf16 and fp32); then the same kernel with the
+   upsampler folded in (``pre_pack``) at V1's and V2's stages 2 and 3 (the
+   stages ``fold_up`` folds), the previous stage's output of a 256-frame
+   request as input, B=1 and B=16 and a ragged T_in at B=3, fp32 (V1)
+   and bf16, printing the kernel's time with and without the upsampling
+   phase, the plain version's and the cuDNN chain's (transposed conv
+   included) and the bound with the upsampler's work;
 3. serves V1 mel->wav requests of (1, 80, 256) and (16, 80, 256) through
    ``make_fast_vocoder`` in bf16 with seeded random weights, with the
    launch counts set to 0 just before and read just after (and after each
-   request); checks shapes, finiteness, the [-1, 1] range and the error
-   against the plain fp32 ``Generator`` within SERVE_REL_TOL of its peak;
-   prints ms per request and the real-time factor;
+   request), then the same requests through ``make_fast_vocoder(fold_up=
+   True)`` counted the same way; checks shapes, finiteness, the [-1, 1]
+   range and each path's error against the plain fp32 ``Generator`` within
+   SERVE_REL_TOL of its peak; prints ms per request (median of SERVE_REPS,
+   the two paths timed in turn), the real-time factor, launches per request and the folded path's
+   distance from the unfolded one;
+3b. streams a seeded STREAM_FRAMES-frame V1 mel in STREAM_CHUNK-frame chunks
+   at B=1 and B=4 through the stateful streamer (``make_streaming_vocoder``,
+   bf16, every stage's MRF through the kernel; the counts set to 0 just
+   before and read just after, and per chunk) and the halo streamer
+   (``streaming_vocode`` over ``make_fast_vocoder``), each held against
+   whole-utterance ``make_fast_vocoder`` synthesis within SERVE_REL_TOL of
+   its peak (the stateful one from sample ``delay_samples`` on), then one
+   fp32 stateful pass (the SIMT body) against the fp32 ``Generator``
+   within FP32_TOL; prints delay_samples, ms per chunk and the real-time
+   factor;
 4. runs ``python -m hifigan_tpu_torch.cli.infer --fast`` end to end on a
-   synthetic sine wav with a torch ``g_*`` file and ``config.json``;
+   synthetic sine wav with a torch ``g_*`` file and ``config.json``, then
+   with ``--streaming_chunk 32`` and with ``--streaming_chunk 32
+   --streaming_state``, checking each wav's length;
 5. holds the MSD conv-stack kernels (``fused_conv_stack``: forward, dx, dW
    + db) against their plain versions at the three V1 MSD scales, full
    width, conv_0's output as input, seeded ``MultiScaleDiscriminator``
@@ -40,8 +61,14 @@ into the git-ignored ``build/kernels``), then:
    finite metrics, that every parameter group and scale 0's spectral ``u``
    move, the per-step launches against the count derived from the step's
    structure, and step 1's metrics against the same step with
-   ``msd_conv_impl='xla'`` within TRAIN_REL_TOL; prints ms per step and the
-   conv-stack kernels' ms per step;
+   ``msd_conv_impl='xla'`` within TRAIN_REL_TOL; before those, step 1 at
+   HOLD_BATCH x 8192 from the seeded state against the same step on the
+   CPU (``msd_conv_impl='xla'``, computed once for phases 6 and 11): the
+   generator's, MPD's and MSD's gradients (Adam first moments) leaf by leaf
+   within STEP_GRAD_TOL and updated parameters group by group within
+   STEP_UPDATE_TOL, beside the CPU step's own floor (its conv outputs
+   jittered by JITTER); prints ms per step and the conv-stack kernels' ms
+   per step;
 7. runs ``python -m hifigan_tpu_torch.cli.train`` on synthetic wavs for
    two steps that write ``g_*``/``do_*``, then again, resuming from them;
 8. holds the stream-graph kernels (``fused_stream_graph``: forward, dx,
@@ -78,8 +105,9 @@ into the git-ignored ``build/kernels``), then:
    times of kernel, plain version and cuDNN, and the bound;
 11. trains V1 as in phase 6 with ``msd_conv_impl='pallas'`` (every MSD conv
    through the per-layer kernels), the launches per step against the
-   derived count (``msd_launches_per_step``) and step 1 against
-   ``msd_conv_impl='xla'``;
+   derived count (``msd_launches_per_step``), step 1 against
+   ``msd_conv_impl='xla'`` and step 1's gradients and parameters against
+   the CPU step as in phase 6;
 12. runs distillation steps as in phase 9 with ``conv_impl='pallas'`` (every
    conv node of the generator and classifiers through the per-layer
    kernels; the members through the stream-graph kernels), both kernels'
@@ -113,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -136,6 +165,10 @@ BF16_REL_TOL = 2.0 ** -4
 # phase 2, so the same allowance: 2^-4 of the fp32 waveform's peak.
 SERVE_REL_TOL = 2.0 ** -4
 BATCHES = (1, 4, 16)
+PRE_BATCHES = (1, 16)
+SERVE_REPS = {1: 21, 16: 9}  # timed requests of each serving path, in turn
+STREAM_CHUNK = 32  # mel frames a streaming step
+STREAM_FRAMES = 320  # the streamed mel
 H100_BF16_FLOPS, H100_FP32_FLOPS, H100_BYTES_PER_S = 989e12, 67e12, 3.35e12
 STACK_BATCHES = (2, 16)
 SEGMENT = 8192
@@ -162,6 +195,7 @@ DISTILL_REL_TOL = 1e-3
 STEP_GRAD_TOL = 5e-2
 STEP_UPDATE_TOL = 0.2
 JITTER = 1e-7
+HOLD_BATCH = 2  # the V1 step-1 hold's batch: a CPU step within the run's time
 SG_ELEMENTS = 12  # elements per member in phase 8: the generated-audio traversals' batch
 # bench.py's label set for the distillation step (copied: bench.py imports JAX)
 DISTILL_LABELS = {
@@ -211,23 +245,39 @@ def library_mrf(xc: torch.Tensor, convs: list, n_rb: int, pair: int, post=None) 
     return torch.tanh(F.conv1d(F.leaky_relu(out, 0.01), post[0], post[1], padding=3))
 
 
-def stage_inputs_of(h, sd, mel: torch.Tensor, dev) -> list:
+def library_weights(packed: dict, post_pack: dict | None) -> tuple[list, tuple | None]:
+    """A packed stage's convs as (weight (O, I, K), bias, dilation) and its
+    post conv as (weight, bias), for :func:`library_mrf`."""
+    c = packed["channels"]
+    convs = []
+    for ci, (k, d, off) in enumerate(packed["convs"]):
+        w = packed["w"][off:off + k * c * c].view(k, c, c).permute(2, 1, 0).contiguous()
+        convs.append((w, packed["bias"][ci], d))
+    post = (None if post_pack is None
+            else (post_pack["w"].t()[None].contiguous(), post_pack["bias"]))
+    return convs, post
+
+
+def stage_inputs_of(h, sd, mel: torch.Tensor, dev) -> tuple[list, list]:
     """Each MRF stage's input from a seeded generator's front (conv_pre, the
-    upsamplers and the plain stages before it), fp32, (B, T, C)."""
+    upsamplers and the plain stages before it), and each stage's head (the
+    input of its leaky ReLU and upsampler: conv_pre's or the previous
+    stage's output), fp32, (B, T, C)."""
     from hifigan_tpu_torch.ops import conv as ops
     from hifigan_tpu_torch.ops import resblock_tail as tail
 
-    inputs = []
+    inputs, heads = [], []
     with torch.no_grad():
         x = ops.conv1d(mel.transpose(1, 2), sd["conv_pre.weight"].to(dev).permute(2, 1, 0),
                        sd["conv_pre.bias"].to(dev), padding=3)
         for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"])):
+            heads.append(x.contiguous())
             x = ops.conv_transpose1d(ops.leaky_relu(x), sd[f"ups.{i}.weight"].to(dev).permute(2, 0, 1),
                                      sd[f"ups.{i}.bias"].to(dev), stride=u,
                                      padding=(k - u) // 2).contiguous()
             inputs.append(x)
             x = tail.fused_tail_stage_reference(x, tail.pack_generator_tail(h, sd, i, device=dev))
-    return inputs
+    return inputs, heads
 
 
 def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict:
@@ -237,30 +287,20 @@ def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
     version's peak (the tensor-core body). Prints each call's plan (body,
     schedule, grid, tile), errors, times, TFLOP/s and bound; sums the bf16
     stage times per request and batch."""
-    import functools
-
     from hifigan_tpu_torch.ops import resblock_tail as tail
 
     n_stages = len(h["upsample_rates"])
-    inputs = stage_inputs_of(h, sd, mel, dev)
+    inputs, _ = stage_inputs_of(h, sd, mel, dev)
     errs = {dtype: 0.0 for dtype in dtypes}
-    per_batch = {b: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0}
-                 for b in batches}
+    per_dtype = {dtype: {b: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0}
+                         for b in batches} for dtype in dtypes}
     for dtype in dtypes:
         esize = torch.tensor([], dtype=dtype).element_size()
         for i in range(n_stages):
             post = i == n_stages - 1
             packed = tail.pack_generator_tail(h, sd, i, dtype=dtype, device=dev)
             post_pack = tail.prepare_post(sd, dtype=dtype, device=dev) if post else None
-            lib_convs = []
-            for rb in range(packed["n_rb"]):
-                for j in range(packed["convs_per_rb"]):
-                    k, d, off = packed["convs"][rb * packed["convs_per_rb"] + j]
-                    c = packed["channels"]
-                    w = packed["w"][off:off + k * c * c].view(k, c, c).permute(2, 1, 0).contiguous()
-                    lib_convs.append((w, packed["bias"][rb * packed["convs_per_rb"] + j], d))
-            lib_post = ((post_pack["w"].t()[None].contiguous(), post_pack["bias"])
-                        if post else None)
+            lib_convs, lib_post = library_weights(packed, post_pack)
             for batch in batches:
                 xs = inputs[i][:batch].to(dtype).contiguous()
                 plan = tail.plan_tail_stage(packed, batch, xs.shape[1], dtype, post,
@@ -298,27 +338,228 @@ def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                       f"bound {bound:.4f} ms ({ops_n / k_ms / 1e9:.2f} TFLOP/s)")
                 check(err <= tol, f"{tag}: error {err} > {tol}")
                 errs[dtype] = max(errs[dtype], err)
-                if dtype == torch.bfloat16:
-                    r = per_batch[batch]
-                    r["ms"] += k_ms
-                    r["plain_ms"] += p_ms
-                    r["library_ms"] += l_ms
-                    r["ops"] += ops_n
-                    r["bytes"] += bytes_n
-    for r in per_batch.values():
-        r["bound_ms"] = max(r["ops"] / H100_BF16_FLOPS, r["bytes"] / H100_BYTES_PER_S) * 1e3
-    return {"errs": errs, "per_batch": per_batch, "request": per_batch[batches[0]]}
+                r = per_dtype[dtype][batch]
+                r["ms"] += k_ms
+                r["plain_ms"] += p_ms
+                r["library_ms"] += l_ms
+                r["ops"] += ops_n
+                r["bytes"] += bytes_n
+    for dtype, rows in per_dtype.items():
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+        for r in rows.values():
+            r["bound_ms"] = max(r["ops"] / rate, r["bytes"] / H100_BYTES_PER_S) * 1e3
+    per_batch = per_dtype.get(torch.bfloat16)
+    return {"errs": errs, "per_batch": per_batch, "per_batch_fp32": per_dtype.get(torch.float32),
+            "request": per_batch[batches[0]]}
 
 
-def stage_cost(packed: dict, batch: int, seq: int, esize: int, post: bool) -> tuple[int, int]:
+def stage_cost(packed: dict, batch: int, seq: int, esize: int, post: bool,
+               pre: dict | None = None) -> tuple[int, int]:
     """(operations, bytes) one stage call must do and move: x and the weights
-    read once, the output written once."""
+    read once, the output written once; with a folded upsampler ``pre`` its
+    taps' products (ceil(k / stride) input rows of C_in a stage row) and
+    weights, x then being the (B, seq / stride, C_in) input."""
     c = packed["channels"]
     taps = sum(k for k, _, _ in packed["convs"])
     ops = 2 * batch * seq * taps * c * c + (2 * batch * seq * 7 * c if post else 0)
     wbytes = (packed["w"].numel() + packed["bias"].numel() + (7 * c + 1 if post else 0)) * esize
     out_bytes = batch * seq * 4 if post else batch * seq * c * esize
-    return ops, batch * seq * c * esize + wbytes + out_bytes
+    x_bytes = batch * seq * c * esize
+    if pre is not None:
+        ops += 2 * batch * seq * pre["taps"] * pre["c_in"] * c
+        wbytes += (pre["taps"] * pre["stride"] * pre["c_in"] * c + c) * esize
+        x_bytes = batch * (seq // pre["stride"]) * pre["c_in"] * esize
+    return ops, x_bytes + wbytes + out_bytes
+
+
+def pre_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict:
+    """Phase 2, folded upsampler: the MRF-stage kernel with ``pre_pack``
+    against its plain version at every stage ``make_fast_vocoder(fold_up=
+    True)`` folds, full width, the previous stage's output of a 256-frame
+    request as input (and a ragged T_in at B=3): fp32 (the SIMT body)
+    within FP32_TOL, bf16 within BF16_REL_TOL of the plain version's peak.
+    Prints the kernel's time with and without the upsampling phase (the
+    latter on the upsampled input), the plain version's, the cuDNN chain's
+    (leaky ReLU, conv_transpose1d, the MRF conv by conv) and the bound with
+    the upsampler's work added."""
+    from hifigan_tpu_torch.models.fast_infer import folds_upsampler
+    from hifigan_tpu_torch.ops import resblock_tail as tail
+
+    n_stages = len(h["upsample_rates"])
+    _, heads = stage_inputs_of(h, sd, mel, dev)
+    errs = {dtype: 0.0 for dtype in dtypes}
+    per_batch = {b: {"ms": 0.0, "ms_without_pre": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                     "ops": 0, "bytes": 0} for b in batches}
+    for dtype in dtypes:
+        esize = torch.tensor([], dtype=dtype).element_size()
+        for i in (i for i in range(n_stages) if folds_upsampler(h, i)):
+            u, k = h["upsample_rates"][i], h["upsample_kernel_sizes"][i]
+            post = i == n_stages - 1
+            packed = tail.pack_generator_tail(h, sd, i, dtype=dtype, device=dev)
+            pre = tail.prepare_upsample(sd, i, u, (k - u) // 2, dtype=dtype, device=dev)
+            post_pack = tail.prepare_post(sd, dtype=dtype, device=dev) if post else None
+            c = packed["channels"]
+            lib_convs, lib_post = library_weights(packed, post_pack)
+
+            def lib_chain(xc):
+                xu = F.conv_transpose1d(F.leaky_relu(xc, 0.1), pre["weight"], pre["bias"],
+                                        stride=u, padding=(k - u) // 2)
+                return library_mrf(xu, lib_convs, packed["n_rb"], packed["pair_size"], lib_post)
+
+            cases = [(b, heads[i].shape[1]) for b in batches] + [(3, heads[i].shape[1] - 37)]
+            for batch, t_in in cases:
+                xs = heads[i][:batch, :t_in].to(dtype).contiguous()
+                t = t_in * u
+                plan = tail.plan_tail_stage(packed, batch, t, dtype, post,
+                                            tail._sm_count(dev.index or 0),
+                                            functools.partial(tail._blocks_per_sm, dev.index or 0),
+                                            pre=pre)
+                with torch.no_grad():
+                    got = tail.fused_tail_stage(xs, packed, post_pack=post_pack, pre_pack=pre)
+                    torch.cuda.synchronize()
+                    ref = tail.fused_tail_stage_reference(xs, packed, post_pack, pre)
+                    xc = xs.transpose(1, 2).contiguous()
+                    lib = lib_chain(xc)
+                    xu = tail.upsample_reference(xs, pre).transpose(1, 2).contiguous()
+                tag = f"{name} stage {i} {dtype} B={batch} T_in={t_in} pre_pack"
+                check(got.shape == ref.shape == (batch, t, 1 if post else c)
+                      and got.dtype == ref.dtype, f"{tag}: {tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite")
+                err = (got.float() - ref.float()).abs().max().item()
+                lib_err = (lib.transpose(1, 2).float() - ref.float()).abs().max().item()
+                peak = ref.float().abs().max().item()
+                tol = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL * peak
+                check(err <= tol, f"{tag}: error {err} > {tol}")
+                errs[dtype] = max(errs[dtype], err)
+                if batch not in per_batch:  # the ragged case: held, not timed
+                    print(f"{tag} C={c} from {pre['c_in']} [{plan['body']}, grid {plan['grid']}]: "
+                          f"max_abs_err {err:.3e} (tol {tol:.3e}, peak {peak:.3f})")
+                    continue
+                reps = 20 if batch == 1 else 5
+                with torch.no_grad():
+                    k_ms = time_ms(lambda: tail.fused_tail_stage(xs, packed, post_pack=post_pack,
+                                                                 pre_pack=pre), reps)
+                    k0_ms = time_ms(lambda: tail.fused_tail_stage(xu, packed, post_pack=post_pack),
+                                    reps)
+                    p_ms = time_ms(lambda: tail.fused_tail_stage_reference(xs, packed, post_pack,
+                                                                           pre), reps)
+                    l_ms = time_ms(lambda: lib_chain(xc), reps)
+                ops_n, bytes_n = stage_cost(packed, batch, t, esize, post, pre)
+                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+                bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
+                print(f"{tag} C={c} from {pre['c_in']} [{plan['body']}, {plan['schedule']}, grid "
+                      f"{plan['grid']}, {plan['items']} items]: max_abs_err {err:.3e} (tol "
+                      f"{tol:.3e}, peak {peak:.3f}, cudnn chain {lib_err:.3e}) kernel "
+                      f"{k_ms:.4f} ms (without the upsampling phase {k0_ms:.4f} ms) plain "
+                      f"{p_ms:.4f} ms cudnn {l_ms:.4f} ms bound {bound:.4f} ms "
+                      f"({ops_n / k_ms / 1e9:.2f} TFLOP/s)")
+                if dtype == torch.bfloat16:
+                    r = per_batch[batch]
+                    for key, v in (("ms", k_ms), ("ms_without_pre", k0_ms), ("plain_ms", p_ms),
+                                   ("library_ms", l_ms), ("ops", ops_n), ("bytes", bytes_n)):
+                        r[key] += v
+    for r in per_batch.values():
+        r["bound_ms"] = max(r["ops"] / H100_BF16_FLOPS, r["bytes"] / H100_BYTES_PER_S) * 1e3
+    return {"errs": errs, "per_batch": per_batch}
+
+
+def stream_phase(h, sd, fast, plain, dev, mel_gen) -> dict:
+    """Phase 3b: both streamers at STREAM_CHUNK-frame chunks over a seeded
+    STREAM_FRAMES-frame mel, B=1 and B=4. The stateful streamer
+    (``make_streaming_vocoder``, bf16, every stage's MRF through the kernel,
+    launches counted per chunk), from sample ``delay_samples`` on within
+    SERVE_REL_TOL of the peak of whole-utterance ``make_fast_vocoder``
+    synthesis; the halo streamer (``streaming_vocode`` over
+    ``make_fast_vocoder``) against the same, everywhere; then one fp32
+    stateful pass (the SIMT body) within FP32_TOL of the fp32 Generator
+    after the delay. Prints delay_samples, ms per chunk (host clock, a
+    synchronize a chunk, median) and the real-time factor."""
+    from hifigan_tpu_torch.models.streaming import make_streaming_vocoder
+    from hifigan_tpu_torch.ops import resblock_tail as tail
+    from hifigan_tpu_torch.parallel.halo import generator_halo_frames, streaming_vocode
+
+    hop = int(np.prod(h["upsample_rates"]))
+    n_stages = len(h["upsample_rates"])
+    chunk_s = STREAM_CHUNK * hop / h["sampling_rate"]
+    mels = {b: (torch.randn((b, h["num_mels"], STREAM_FRAMES), generator=mel_gen) * 2 - 5).to(dev)
+            for b in (1, 4)}
+    with torch.no_grad():
+        full = {b: fast(m) for b, m in mels.items()}  # whole-utterance references
+    torch.cuda.synchronize()
+    init_state, step, delay = make_streaming_vocoder(h, sd)
+    halo = generator_halo_frames(h)
+    out = {"delay_samples": delay, "ms_per_chunk": {}, "halo_ms_per_chunk": {}}
+
+    def run_stateful(step_fn, state, mel):
+        outs, chunk_ms, per_chunk = [], [], []
+        for s0 in range(0, mel.shape[-1], STREAM_CHUNK):
+            before = tail.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, wav = step_fn(state, mel[:, :, s0:s0 + STREAM_CHUNK])
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            per_chunk.append(tail.LAUNCHES - before)
+            outs.append(wav)
+        return torch.cat(outs, dim=-1), chunk_ms, per_chunk
+
+    tail.LAUNCHES = 0  # the stateful streamer's path
+    results = {b: run_stateful(step, init_state(b), m) for b, m in mels.items()}
+    out["launches"] = tail.LAUNCHES
+    tail.LAUNCHES = 0  # the halo streamer's path
+    halo_runs = {}
+    for b, m in mels.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = streaming_vocode(lambda p, x: fast(x), None, m, STREAM_CHUNK, halo, hop)
+        halo_runs[b] = (wav, (time.perf_counter() - t0) * 1e3 / (STREAM_FRAMES // STREAM_CHUNK))
+    out["halo_launches"] = tail.LAUNCHES
+    for b, (stream, chunk_ms, per_chunk) in results.items():
+        ref = full[b]
+        total = ref.shape[-1]
+        tag = f"stateful stream B={b}"
+        check(tuple(stream.shape) == tuple(ref.shape) and bool(torch.isfinite(stream).all()),
+              f"{tag}: {tuple(stream.shape)} or non-finite")
+        check(all(n == n_stages for n in per_chunk),
+              f"{tag}: launches per chunk {per_chunk}, expected {n_stages}")
+        want = ref[:, :, delay:total - delay]
+        err = (stream[:, :, 2 * delay:] - want).abs().max().item()
+        peak = want.abs().max().item()
+        ms = float(np.median(chunk_ms))
+        out["ms_per_chunk"][b] = ms
+        print(f"{tag}, {STREAM_CHUNK}-frame chunks, bf16: delay_samples {delay}; "
+              f"{ms:.3f} ms per chunk (median of {len(chunk_ms)}, first {chunk_ms[0]:.3f}), "
+              f"{b * chunk_s / (ms / 1e3):.1f}x real time; launches per chunk {per_chunk[0]}; "
+              f"from the delay on vs whole-utterance make_fast_vocoder max_abs_err {err:.3e} "
+              f"(tol {SERVE_REL_TOL * peak:.3e}, peak {peak:.4f})")
+        check(err <= SERVE_REL_TOL * peak, f"{tag}: {err} > {SERVE_REL_TOL} * {peak}")
+        wav, ms = halo_runs[b]
+        err = float(np.abs(wav - ref.float().cpu().numpy()).max())
+        peak = ref.abs().max().item()
+        out["halo_ms_per_chunk"][b] = ms
+        print(f"halo stream B={b} (streaming_vocode over make_fast_vocoder, halo {halo} frames, "
+              f"windows of {STREAM_CHUNK + 2 * halo}): {ms:.3f} ms per chunk (mean of "
+              f"{STREAM_FRAMES // STREAM_CHUNK}), {b * chunk_s / (ms / 1e3):.1f}x real time; vs "
+              f"whole-utterance max_abs_err {err:.3e} (tol {SERVE_REL_TOL * peak:.3e})")
+        check(wav.shape == tuple(ref.shape) and err <= SERVE_REL_TOL * peak,
+              f"halo stream B={b}: {wav.shape} error {err} > {SERVE_REL_TOL} * {peak}")
+    # fp32: the SIMT body on chunks, against the fp32 Generator
+    init32, step32, delay32 = make_streaming_vocoder(h, sd, dtype=torch.float32)
+    mel = mels[1][:, :, :2 * STREAM_CHUNK]
+    tail.LAUNCHES = 0
+    stream, chunk_ms, per_chunk = run_stateful(step32, init32(1), mel)
+    out["fp32_launches"] = tail.LAUNCHES
+    with torch.no_grad():
+        ref = plain(mel)
+    total = ref.shape[-1]
+    err = (stream[:, :, 2 * delay32:] - ref[:, :, delay32:total - delay32]).abs().max().item()
+    out["fp32_err"] = err
+    print(f"stateful stream fp32 B=1 ({mel.shape[-1]} frames): delay_samples {delay32}, "
+          f"{float(np.median(chunk_ms)):.3f} ms per chunk, launches per chunk {per_chunk}; from "
+          f"the delay on vs the fp32 Generator max_abs_err {err:.3e} (tol {FP32_TOL})")
+    check(delay32 == delay and all(n == n_stages for n in per_chunk) and err <= FP32_TOL,
+          f"fp32 stateful stream: delay {delay32}, launches {per_chunk}, error {err}")
+    return out
 
 
 def synthetic_audio(batch: int, length: int, sr: int, seed: int) -> np.ndarray:
@@ -556,10 +797,88 @@ def pool_reading(dev) -> None:
         check(err <= 1e-6, f"avg pool ({n}, {t}, {c}): {err} on the card vs the CPU")
 
 
-def train_phase(h, dev, msd_impl: str = "auto") -> dict:
+V1_GROUPS = ("generator", "mpd", "msd")
+
+
+def v1_snapshot(state) -> dict:
+    """Each V1 group's parameters and Adam first moments, cloned to the
+    CPU. After step 1 a first moment is (1 - b1) x the group's gradient."""
+    out = {}
+    for g in V1_GROUPS:
+        opt = state.opt_g if g == "generator" else state.opt_d
+        ps = list(getattr(state, g).parameters())
+        out[g] = ([p.detach().cpu().clone() for p in ps],
+                  [opt.state[p]["exp_avg"].detach().cpu().clone() for p in ps])
+    return out
+
+
+class jittered_torch_convs:
+    """Within the block every ``F.conv1d``, ``F.conv2d`` and
+    ``F.conv_transpose1d`` output (the V1 models' convs) is multiplied by
+    (1 + delta * N(0, 1)), seeded: float-order noise of relative size delta."""
+
+    NAMES = ("conv1d", "conv2d", "conv_transpose1d")
+
+    def __init__(self, delta: float, seed: int):
+        self.delta, self.seed = delta, seed
+
+    def __enter__(self):
+        gen = torch.Generator().manual_seed(self.seed)
+        self.real = {n: getattr(F, n) for n in self.NAMES}
+
+        def jittered(real):
+            def conv(*args, **kwargs):
+                y = real(*args, **kwargs)
+                return y * (1 + self.delta * torch.randn(y.shape, generator=gen).to(y.device))
+            return conv
+
+        for n, real in self.real.items():
+            setattr(F, n, jittered(real))
+        return self
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(F, n, real)
+
+
+def v1_step_reference(h) -> dict:
+    """The CPU side of phases 6 and 11's step-1 hold, computed once: one
+    ``make_train_step`` step of V1 at HOLD_BATCH x segment_size on the CPU
+    with ``msd_conv_impl='xla'`` from the seeded state, and the same step
+    with every conv output jittered by JITTER (the floor)."""
+    from hifigan_tpu_torch.config import AttrDict
+    from hifigan_tpu_torch.train.vocoder import create_train_state, make_train_step
+
+    hx = AttrDict(h, msd_conv_impl="xla", batch_size=HOLD_BATCH)
+    batch = {"audio": synthetic_audio(HOLD_BATCH, h["segment_size"], h["sampling_rate"],
+                                      SEED + 30)}
+    step_fn = make_train_step(hx)
+    t0 = time.perf_counter()
+    state = create_train_state(hx, seed=SEED, device="cpu")
+    start = {g: copy.deepcopy(getattr(state, g).state_dict()) for g in V1_GROUPS}
+    names = {g: [f"{g}.{n}" for n, _ in getattr(state, g).named_parameters()] for g in V1_GROUPS}
+    before = {g: [p.detach().clone() for p in getattr(state, g).parameters()] for g in V1_GROUPS}
+    state, metrics = step_fn(state, batch)
+    want = v1_snapshot(state)
+    state = create_train_state(hx, seed=SEED, device="cpu")
+    for g in V1_GROUPS:
+        getattr(state, g).load_state_dict(start[g])
+    with jittered_torch_convs(JITTER, SEED + 31):
+        state, _ = step_fn(state, batch)
+    floor = v1_snapshot(state)
+    metrics = {k: v.item() for k, v in metrics.items()}
+    print(f"V1 step-1 reference on the CPU (B={HOLD_BATCH} x {h['segment_size']}, "
+          f"msd_conv_impl='xla', {torch.get_num_threads()} threads) and its jittered floor in "
+          f"{time.perf_counter() - t0:.3f} s; metrics {json.dumps(metrics)}")
+    return {"start": start, "batch": batch, "names": names, "before": before, "want": want,
+            "floor": floor, "lrs": {g: h["learning_rate"] for g in V1_GROUPS}}
+
+
+def train_phase(h, dev, ref: dict, msd_impl: str = "auto") -> dict:
     """Phases 6 and 11: V1 train steps at full size through
     ``make_train_step`` with ``msd_conv_impl`` ``'auto'`` (the conv-stack
-    kernels) or ``'pallas'`` (the per-layer conv kernels)."""
+    kernels) or ``'pallas'`` (the per-layer conv kernels), after step 1 at
+    HOLD_BATCH held against the CPU step ``ref`` (:func:`v1_step_reference`)."""
     from hifigan_tpu_torch.config import AttrDict
     from hifigan_tpu_torch.ops import conv_stack as cs
     from hifigan_tpu_torch.ops import msd_conv
@@ -575,6 +894,30 @@ def train_phase(h, dev, msd_impl: str = "auto") -> dict:
         layers = 7  # MSD layers 1-6 + conv_post, one launch each per pass
         per_step = {k: v * n_scales * layers for k, v in PASSES_PER_STEP.items()}
     step_fn = make_train_step(h)
+
+    # step 1's gradients and updated parameters against the same step on the CPU
+    hold = create_train_state(h, seed=SEED, device=dev)
+    for g in V1_GROUPS:
+        getattr(hold, g).load_state_dict(ref["start"][g])
+    hold, _ = step_fn(hold, ref["batch"])
+    got = v1_snapshot(hold)
+    del hold
+    upd = held_update(ref["names"], ref["lrs"], ref["before"], got, ref["want"])
+    floor = held_update(ref["names"], ref["lrs"], ref["before"], ref["floor"], ref["want"])
+    del got
+    print(update_line(f"V1 step 1 at B={HOLD_BATCH}, msd_conv_impl={msd_impl!r} on the card vs "
+                      "msd_conv_impl='xla' on the CPU", upd))
+    print(update_line(f"V1 step 1 on the CPU with its conv outputs jittered by {JITTER:g} vs the "
+                      "CPU (the noise floor)", floor))
+    n_leaves = sum(len(v) for v in ref["names"].values())
+    check(upd["leaves"] == n_leaves, f"{upd['leaves']} leaves held of {n_leaves} parameters")
+    check(upd["grad_rel"] <= STEP_GRAD_TOL,
+          f"V1 step 1 gradients, {msd_impl} on the card vs the CPU: {upd['grad_leaf']} "
+          f"{upd['grad_rel']} > {STEP_GRAD_TOL}")
+    check(upd["update_rel"] <= STEP_UPDATE_TOL,
+          f"V1 step 1 parameters, {msd_impl} on the card vs the CPU: {upd['update_group']} "
+          f"{upd['update_rel']} > {STEP_UPDATE_TOL}")
+    torch.cuda.empty_cache()
     batches = [{"audio": synthetic_audio(h["batch_size"], h["segment_size"], h["sampling_rate"],
                                          SEED + 10 + i)} for i in range(TRAIN_STEPS)]
     state = create_train_state(h, seed=SEED, device=dev)
@@ -621,7 +964,8 @@ def train_phase(h, dev, msd_impl: str = "auto") -> dict:
           f"(TF32 off): step ms {[round(t, 3) for t in step_ms]}, median of steps "
           f"3-{TRAIN_STEPS}: {ms:.3f} ms; {what} launches per step {per_step}; metrics step "
           f"{TRAIN_STEPS}: {json.dumps(history[-1])}")
-    return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel}
+    return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel,
+            "update": upd, "update_floor": floor}
 
 
 def cli_train_phase(h) -> None:
@@ -998,7 +1342,7 @@ def parameter_names(models) -> dict:
 
 def held_update(names: dict, lrs: dict, before: dict, got: dict, want: dict) -> dict:
     """Step 1's gradients (the Adam first moments) and updated parameters of
-    the six groups against a reference step's: each leaf's gradient
+    each group against a reference step's: each leaf's gradient
     difference in norm over its gradient's norm (the worst leaf), and each
     group's parameter difference in norm over the reference update's norm
     (the worst group). AdamW's first update is lr * g / (|g| + eps) +
@@ -1625,18 +1969,30 @@ def main() -> int:
     v2 = mrf_phase(h2, sd2, mel_in[:1], dev, "V2", (torch.bfloat16,), (1,))
     errs[torch.bfloat16] = max(errs[torch.bfloat16], v2["errs"][torch.bfloat16])
     for b in BATCHES:
-        r = mrf["per_batch"][b]
-        print(f"B1 bf16 per V1 request at B={b}: kernel {r['ms']:.4f} ms over the "
-              f"{n_stages} stages, cudnn chain {r['library_ms']:.4f} ms, plain "
+        for dt, r in (("bf16", mrf["per_batch"][b]), ("fp32", mrf["per_batch_fp32"][b])):
+            print(f"B1 {dt} per V1 request at B={b}: kernel {r['ms']:.4f} ms over the "
+                  f"{n_stages} stages, cudnn chain {r['library_ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+    # ... and with the upsampler folded in (pre_pack) at the stages fold_up folds
+    pre = pre_phase(h, sd, mel_in, dev, "V1", (torch.float32, torch.bfloat16), PRE_BATCHES)
+    pre_v2 = pre_phase(h2, sd2, mel_in, dev, "V2", (torch.bfloat16,), PRE_BATCHES)
+    pre_errs = {dt: max(pre["errs"].get(dt, 0.0), pre_v2["errs"].get(dt, 0.0))
+                for dt in (torch.float32, torch.bfloat16)}
+    for b in PRE_BATCHES:
+        r = pre["per_batch"][b]
+        print(f"B1 bf16 with pre_pack per V1 request at B={b} (the folded stages): kernel "
+              f"{r['ms']:.4f} ms, without the upsampling phase {r['ms_without_pre']:.4f} ms, "
+              f"cudnn chain (with the transposed convs) {r['library_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
 
-    # 3. serve requests through the port's main path
+    # 3. serve requests through the port's main path, then with fold_up=True
     torch.cuda.empty_cache()
     fast = make_fast_vocoder(h, sd, dtype=torch.bfloat16)
+    folded = make_fast_vocoder(h, sd, dtype=torch.bfloat16, fold_up=True)
     plain = Generator(h, folded=True)
     plain.load_state_dict(sd)
     plain = plain.to(dev).eval()
-    serve = {}
+    serve, serve_fold_up = {}, {}
     mels = {b: (torch.randn((b, h["num_mels"], FRAMES), generator=mel_gen) * 2 - 5)
             for b in (1, 16)}
     outs, per_request = {}, {}
@@ -1649,32 +2005,53 @@ def main() -> int:
     launches = tail.LAUNCHES
     check(all(n == n_stages for n in per_request.values()),
           f"launches per request {per_request}, expected {n_stages} each")
+    outs_fold, per_request_fold = {}, {}
+    tail.LAUNCHES = 0
     for b, m in mels.items():
-        wav = outs[b]
-        check(tuple(wav.shape) == (b, 1, FRAMES * hop), f"served shape {tuple(wav.shape)}")
-        check(bool(torch.isfinite(wav).all()), "served waveform has non-finite samples")
-        check(wav.abs().max().item() <= 1.0, "served waveform leaves [-1, 1]")
+        before = tail.LAUNCHES
+        outs_fold[b] = folded(m)
+        per_request_fold[str(b)] = tail.LAUNCHES - before
+    torch.cuda.synchronize()
+    launches_fold_up = tail.LAUNCHES
+    check(all(n == n_stages for n in per_request_fold.values()),
+          f"fold_up launches per request {per_request_fold}, expected {n_stages} each")
+    for b, m in mels.items():
         with torch.no_grad():
             ref = plain(m.to(dev))
-        diff = (wav - ref).abs()
-        max_err, mean_err = diff.max().item(), diff.mean().item()
         ref_peak = ref.abs().max().item()
         check(ref_peak > 0, f"served B={b}: the fp32 Generator's waveform is silent")
-        req_ms = []
-        for _ in range(5 if b == 1 else 3):
-            t0 = time.perf_counter()
-            fast(m)
-            torch.cuda.synchronize()
-            req_ms.append((time.perf_counter() - t0) * 1e3)
-        ms = float(np.median(req_ms))
-        rtf = b * FRAMES * hop / h["sampling_rate"] / (ms / 1e3)
-        serve[b] = ms
-        print(f"serve B={b}: {ms:.3f} ms/request (median of {len(req_ms)}), "
-              f"{rtf:.1f}x real time; vs fp32 Generator max_abs_err {max_err:.3e} "
-              f"mean_abs_err {mean_err:.3e} (tol {SERVE_REL_TOL * ref_peak:.3e}, "
-              f"peak {ref_peak:.4f})")
-        check(max_err <= SERVE_REL_TOL * ref_peak,
-              f"served B={b} vs fp32 Generator: max {max_err} > {SERVE_REL_TOL} * {ref_peak}")
+        for tag, wav in (("", outs[b]), (" fold_up", outs_fold[b])):
+            check(tuple(wav.shape) == (b, 1, FRAMES * hop), f"served{tag} shape {tuple(wav.shape)}")
+            check(bool(torch.isfinite(wav).all()), f"served{tag} waveform has non-finite samples")
+            check(wav.abs().max().item() <= 1.0, f"served{tag} waveform leaves [-1, 1]")
+        req_ms = {"": [], " fold_up": []}
+        for _ in range(SERVE_REPS[b]):  # the two paths in turn
+            for tag, fn in (("", fast), (" fold_up", folded)):
+                t0 = time.perf_counter()
+                fn(m)
+                torch.cuda.synchronize()
+                req_ms[tag].append((time.perf_counter() - t0) * 1e3)
+        for tag, wav in (("", outs[b]), (" fold_up", outs_fold[b])):
+            diff = (wav - ref).abs()
+            max_err, mean_err = diff.max().item(), diff.mean().item()
+            ms = float(np.median(req_ms[tag]))
+            rtf = b * FRAMES * hop / h["sampling_rate"] / (ms / 1e3)
+            (serve_fold_up if tag else serve)[b] = ms
+            extra = (f"; vs the unfolded path max_abs_err "
+                     f"{(wav - outs[b]).abs().max().item():.3e}" if tag else "")
+            print(f"serve{tag} B={b}: {ms:.3f} ms/request (median of {len(req_ms[tag])}), "
+                  f"{rtf:.1f}x real time, launches per request "
+                  f"{(per_request_fold if tag else per_request)[str(b)]}; vs fp32 Generator "
+                  f"max_abs_err {max_err:.3e} mean_abs_err {mean_err:.3e} (tol "
+                  f"{SERVE_REL_TOL * ref_peak:.3e}, peak {ref_peak:.4f}){extra}")
+            check(max_err <= SERVE_REL_TOL * ref_peak, f"served{tag} B={b} vs fp32 Generator: "
+                                                       f"max {max_err} > {SERVE_REL_TOL} * {ref_peak}")
+    del folded
+
+    # 3b. both streamers through the kernel at 32-frame chunks
+    stream = stream_phase(h, sd, fast, plain, dev, mel_gen)
+    del fast, plain
+    torch.cuda.empty_cache()
 
     # 4. the CLI end to end
     with tempfile.TemporaryDirectory() as tmp:
@@ -1688,15 +2065,21 @@ def main() -> int:
         save_wav(str(tmp / "wavs" / "tone.wav"), tone, sr)
         (tmp / "ckpt" / "config.json").write_text(json.dumps(h))
         torch.save({"generator": state_wn}, tmp / "ckpt" / "g_00000000")
-        written = infer.inference(infer.build_parser().parse_args([
-            "--input_wavs_dir", str(tmp / "wavs"), "--output_dir", str(tmp / "out"),
-            "--checkpoint_file", str(tmp / "ckpt" / "g_00000000"), "--fast"]), h)
-        check(len(written) == 1, f"cli wrote {written}")
-        data, out_sr = load_wav(written[0])
-        frames = sr // h["hop_size"]  # reflect pad (n_fft - hop) / 2 a side
-        check(out_sr == sr and data.shape == (1, frames * hop), f"cli wav {data.shape} @ {out_sr}")
-        check(bool(np.isfinite(data).all()) and float(np.abs(data).max()) > 0, "cli wav silent")
-        print(f"cli --fast wrote {os.path.basename(written[0])}: {data.shape[1]} samples @ {out_sr} Hz")
+        chunk = ["--streaming_chunk", str(STREAM_CHUNK)]
+        for n, flags in enumerate((["--fast"], ["--fast", *chunk],
+                                   ["--fast", *chunk, "--streaming_state"])):
+            written = infer.inference(infer.build_parser().parse_args([
+                "--input_wavs_dir", str(tmp / "wavs"), "--output_dir", str(tmp / f"out{n}"),
+                "--checkpoint_file", str(tmp / "ckpt" / "g_00000000"), *flags]), h)
+            check(len(written) == 1, f"cli {flags} wrote {written}")
+            data, out_sr = load_wav(written[0])
+            frames = sr // h["hop_size"]  # reflect pad (n_fft - hop) / 2 a side
+            check(out_sr == sr and data.shape == (1, frames * hop),
+                  f"cli {flags} wav {data.shape} @ {out_sr}")
+            check(bool(np.isfinite(data).all()) and float(np.abs(data).max()) > 0,
+                  f"cli {flags} wav silent")
+            print(f"cli {' '.join(flags)} wrote {os.path.basename(written[0])}: "
+                  f"{data.shape[1]} samples @ {out_sr} Hz")
 
     # 5. the conv-stack kernels against their plain versions, every V1 MSD scale
     torch.cuda.empty_cache()
@@ -1708,7 +2091,8 @@ def main() -> int:
     # 6. V1 train steps through the port's main training path (its pools
     # held against the CPU first)
     pool_reading(dev)
-    train = train_phase(h, dev)
+    v1_ref = v1_step_reference(h)
+    train = train_phase(h, dev, v1_ref)
     torch.cuda.empty_cache()
 
     # 7. the training CLI end to end
@@ -1734,7 +2118,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. V1 train steps with msd_conv_impl='pallas'
-    train_b5 = train_phase(h, dev, msd_impl="pallas")
+    train_b5 = train_phase(h, dev, v1_ref, msd_impl="pallas")
+    del v1_ref
     torch.cuda.empty_cache()
 
     # 12. production distillation train steps with conv_impl='pallas'
@@ -1771,7 +2156,36 @@ def main() -> int:
                        "walking the whole sequence conv by conv (no halo recompute)"),
         "per_batch": {str(b): {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                       for b, r in mrf["per_batch"].items()},
+        "fp32_per_batch": {str(b): {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                           for b, r in mrf["per_batch_fp32"].items()},
         "serve_ms": serve,
+        "pre_pack": {
+            "max_abs_err": pre_errs[torch.float32],
+            "max_abs_err_bf16": pre_errs[torch.bfloat16],
+            "per_batch": {str(b): {k: r[k] for k in ("ms", "ms_without_pre", "plain_ms",
+                                                     "library_ms", "bound_ms")}
+                          for b, r in pre["per_batch"].items()},
+            "launches_fold_up": launches_fold_up,
+            "launches_per_request_fold_up": per_request_fold,
+            "serve_fold_up_ms": serve_fold_up,
+            "per": ("per_batch: bf16 at V1 stages 2 and 3 (the stages fold_up folds), with the "
+                    "upsampling phase (ms), the same kernel on the upsampled input "
+                    "(ms_without_pre), the plain version, the cuDNN chain with the transposed "
+                    "convs, the bound with the upsampler's work; errors over V1 and V2 stages "
+                    "2-3 at B=1, 16 and a ragged T_in; launches_fold_up: the fold_up serving "
+                    "path's run of two requests (B=1 and B=16)"),
+        },
+        "streaming": {
+            "delay_samples": stream["delay_samples"],
+            "launches": stream["launches"],
+            "halo_launches": stream["halo_launches"],
+            "fp32_launches": stream["fp32_launches"],
+            "ms_per_chunk": stream["ms_per_chunk"],
+            "halo_ms_per_chunk": stream["halo_ms_per_chunk"],
+            "per": (f"launches: the stateful streamer's run ({STREAM_FRAMES} frames in "
+                    f"{STREAM_CHUNK}-frame chunks at B=1 and B=4, bf16), halo_launches: the halo "
+                    "streamer's over the same mels, fp32_launches: the fp32 stateful pass"),
+        },
     }]
     rows = [r for r in stack["per_scale"] if r["dtype"] == "float32"]
     stack_ms = 0.0

@@ -2,7 +2,10 @@
 
 Flags: ``--input_wavs_dir``, ``--output_dir``, ``--checkpoint_file`` (a
 torch ``g_*`` file; ``config.json`` sits beside it), ``--fast`` (every MRF
-stage in the fused CUDA kernel) and ``--device`` (default ``cuda``)::
+stage in the fused CUDA kernel), ``--streaming_chunk N`` (vocode in windows
+of N mel frames with receptive-field overlap), ``--streaming_state`` (with
+``--streaming_chunk``: the stateful streamer) and ``--device`` (default
+``cuda``)::
 
     python -m hifigan_tpu_torch.cli.infer --checkpoint_file ckpt/g_00000000 --fast
 """
@@ -17,7 +20,7 @@ import torch
 
 from hifigan_tpu_torch.audio import MAX_WAV_VALUE, load_wav, save_wav
 from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
-from hifigan_tpu_torch.config import load_config
+from hifigan_tpu_torch.config import load_config, upsample_hop
 from hifigan_tpu_torch.device import resolve_device
 from hifigan_tpu_torch.models import Generator, fold_weight_norm
 from hifigan_tpu_torch.train.checkpoint import load_checkpoint
@@ -32,8 +35,6 @@ def load_generator_state(checkpoint_file: str) -> dict:
 
 def make_apply(a, h, state: dict, device: torch.device):
     """fn(mel (B, M, T)) -> wav (B, 1, T*hop) float32, honoring --fast."""
-    if getattr(a, "streaming_chunk", 0) or getattr(a, "streaming_state", False):
-        raise NotImplementedError("streaming synthesis is not ported yet")
     if getattr(a, "fast", False):
         from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
 
@@ -47,6 +48,36 @@ def make_apply(a, h, state: dict, device: torch.device):
         return gen(mel.to(device))
 
     return apply
+
+
+def synthesize(a, h, apply, params: dict, x: torch.Tensor) -> np.ndarray:
+    """mel (B, M, T) -> wav (B, 1, T * hop) as numpy, honoring
+    ``--streaming_chunk`` (the halo streamer over ``apply``: exact, the halo
+    covering the receptive field) and ``--streaming_state`` (the stateful
+    streamer on the folded weights ``params``, bf16, the fused stage kernel
+    on CUDA: exact from sample ``delay`` on; a whole file is flushed with
+    silence and cropped to its length)."""
+    chunk = int(getattr(a, "streaming_chunk", 0) or 0)
+    hop = upsample_hop(h)
+    if chunk > 0 and getattr(a, "streaming_state", False):
+        from hifigan_tpu_torch.models.streaming import make_streaming_vocoder
+
+        total = x.shape[-1]
+        init_state, step, delay = make_streaming_vocoder(h, params, device=x.device)
+        state = init_state(batch=x.shape[0])
+        pad_frames = -(-delay // hop) + chunk
+        xp = torch.nn.functional.pad(x, (0, pad_frames + (-total % chunk)))
+        outs = []
+        for s in range(0, xp.shape[-1], chunk):
+            state, wav = step(state, xp[:, :, s:s + chunk])
+            outs.append(wav.cpu().numpy())
+        return np.concatenate(outs, axis=-1)[:, :, delay:delay + total * hop]
+    if chunk > 0:
+        from hifigan_tpu_torch.parallel.halo import generator_halo_frames, streaming_vocode
+
+        return streaming_vocode(lambda p, m: apply(m), params, x, chunk,
+                                generator_halo_frames(h), hop)
+    return apply(x).float().cpu().numpy()
 
 
 def to_pcm16(wav: np.ndarray) -> np.ndarray:
@@ -66,9 +97,9 @@ def inference(a, h) -> list[str]:
             continue
         wav, _ = load_wav(os.path.join(a.input_wavs_dir, filename))
         x = log_mel_spectrogram(torch.from_numpy(wav).to(device), mel_cfg)
-        y = apply(x if x.dim() == 3 else x[None])
+        y = synthesize(a, h, apply, state, x if x.dim() == 3 else x[None])
         out = os.path.join(a.output_dir, os.path.splitext(filename)[0] + "_generated.wav")
-        save_wav(out, to_pcm16(y[0, 0].float().cpu().numpy()), h["sampling_rate"])
+        save_wav(out, to_pcm16(y[0, 0]), h["sampling_rate"])
         print(out)
         written.append(out)
     return written
@@ -83,9 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="every MRF stage in the fused CUDA kernel (bf16)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--streaming_chunk", type=int, default=0,
-                        help="not ported yet: raises when set")
+                        help="vocode in fixed windows of N mel frames with "
+                             "receptive-field overlap (0 = whole utterance)")
     parser.add_argument("--streaming_state", action="store_true",
-                        help="not ported yet: raises when set")
+                        help="with --streaming_chunk: the stateful streamer (per-stage "
+                             "state, no halo recompute, lowest latency)")
     return parser
 
 

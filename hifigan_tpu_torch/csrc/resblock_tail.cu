@@ -14,6 +14,16 @@
 // then applies lrelu(0.01) -> conv_post (k7, C -> 1) -> tanh and writes the
 // waveform (B, T) in fp32.
 //
+// With a folded upsampler (pre_w != null, Pallas body :332-343) the input is
+// the previous stage's output (B, T_in, C_in) and the stage's x is first
+// computed as lrelu(0.1) -> ConvTranspose1d(stride u) + bias, rounded to the
+// storage type once (T = T_in * u). The TPU kernel does that as a blocked
+// matmul chain tied to its lane width (stride 2 only); here it is split by
+// output phase p: output row m*u + p is a dilation-1 conv of taps =
+// ceil(k/u) taps over input rows m + off(p) + t, off(p) = (p + pad)/u -
+// (taps - 1), with the host's phase-split taps (u, taps, C_in, C). Any
+// stride works. Input rows outside [0, T_in) read as zero.
+//
 // What bounds it: arithmetic. A V1 request of 256 mel frames at B=1 does
 // about 152 GFLOP of MRF work (18 convs per stage, 126 taps * C^2 per
 // output sample) against a few tens of MB of activations and weights, far
@@ -34,6 +44,9 @@
 //   applied on the load) and those channels' weights in shared memory.
 // - Intermediates live in a per-block global scratch (two ping-pong
 //   buffers plus an fp32 mean accumulator); blocks loop over work items.
+// - A folded upsampler first computes the tile's whole window (tile plus
+//   halo) of upsampled x into a third scratch buffer, phase by phase, with
+//   the same SIMT GEMM over C_in; the chains then read x from there.
 //
 // bf16 -- the tensor-core body (hifigan_mrf_stage_tc), the served path:
 // - Conv core: each conv is an implicit GEMM, M = output rows, N = C_out,
@@ -58,6 +71,11 @@
 //   time tile plus halo in shared memory (x read and y written once) was
 //   measured slower at every V1 and V2 stage and batch on the H100 and is
 //   not kept (PERF.md).
+// - A folded upsampler adds one phase before conv 0: work items (output
+//   phase, batch row, 128 input rows, column tile) run the conv core over
+//   a C_in-wide window of lrelu'd input rows and store rows m*u + p of one
+//   more (B, T, C) plane, which then stands for x (first conv's source and
+//   the residual). Still one launch per stage.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -88,18 +106,25 @@ template <typename T> __device__ __forceinline__ float lrelu(float v, float slop
 }
 
 struct StageArgs {
-  const void* x;       // (B, T, C) storage type
+  const void* x;       // (B, T, C) storage type, or (B, T_in, C_in) with pre_w
   const void* w;       // every conv's (K, C, C) taps, concatenated
   const void* bias;    // (n_conv, C)
   const int* desc;     // per conv: k, dilation, offset of its taps in w
   const void* post_w;  // (7, C) or null
   const void* post_b;  // (1,)
   void* y;             // (B, T, C) storage type, or (B, T) fp32 with post
-  void* scratch;       // grid x 2 x work x C storage type
+  const void* pre_w;   // (u, taps, C_in, C) phase-split upsampler taps, or null
+  const void* pre_b;   // (C,)
+  void* scratch;       // grid x (2, or 3 with pre_w) x work x C storage type
   float* acc;          // grid x (tile + 2 * post_halo) x C fp32
   int batch, seq, C, n_rb, convs_per_rb, pair_size, tile, halo, post_halo;
   int n_tiles, a_floats;  // a_floats: shared floats before the weight tile
+  int cin, stride, taps, pre_pad;  // the folded upsampler's (seq = T_in * stride)
 };
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
 
 // One 'same' dilated conv over output rows [lo, hi) of the work window.
 // Row r of the window is sequence row g0 + r; src/res element (r, c) lives
@@ -182,6 +207,86 @@ __device__ void conv_rows(const T* w, const T* bias, int k, int d, int C,
   }
 }
 
+// The folded upsampler over window rows [0, rows) (sequence rows g0 + r),
+// phase by phase: row m*u + p = bias + sum_t lrelu(xin[m + off(p) + t]) @
+// w[p][t], rounded; xin rows outside [0, seq_in) read as zero, window rows
+// outside [0, seq) are stored as zero. Same tiling as conv_rows.
+template <typename T, int BN>
+__device__ void upsample_rows(const T* w, const T* bias, const T* xin, int seq_in, int cin,
+                              int C, int u, int taps, int pad, T* dst, int g0, int rows, int seq,
+                              float* As, float* Ws) {
+  constexpr int TX = BN / 4;
+  constexpr int TY = kThreads / TX;
+  constexpr int BM = TY * kTM;
+  const int span = BM + taps - 1;
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+
+  for (int p = 0; p < u; ++p) {
+    const int off = (p + pad) / u - (taps - 1);
+    const int m_lo = -floor_div(p - g0, u);  // ceil((g0 - p) / u)
+    const int m_hi = floor_div(g0 + rows - 1 - p, u);
+    const T* wp = w + (long)p * taps * cin * C;
+    for (int m0 = m_lo; m0 <= m_hi; m0 += BM) {
+      for (int n0 = 0; n0 < C; n0 += BN) {
+        float acc[kTM][4];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+        for (int c0 = 0; c0 < cin; c0 += kBK) {
+          for (int i = tid; i < span * kBK; i += kThreads) {
+            const int row = i / kBK, kk = i % kBK;
+            const int gi = m0 + off + row, ci = c0 + kk;
+            float v = 0.f;
+            if (gi >= 0 && gi < seq_in && ci < cin) v = lrelu<T>(to_f(xin[(long)gi * cin + ci]), 0.1f);
+            As[row * kAStride + kk] = v;
+          }
+          for (int i = tid; i < taps * kBK * BN; i += kThreads) {
+            const int col = i % BN, rest = i / BN;
+            const int kk = rest % kBK, tap = rest / kBK;
+            const int ci = c0 + kk, co = n0 + col;
+            Ws[i] = (ci < cin && co < C) ? to_f(wp[((long)tap * cin + ci) * C + co]) : 0.f;
+          }
+          __syncthreads();
+          for (int tap = 0; tap < taps; ++tap) {
+            const float* Ab = As + (ty * kTM + tap) * kAStride;
+            const float* Wb = Ws + tap * kBK * BN + tx * 4;
+#pragma unroll
+            for (int kk = 0; kk < kBK; ++kk) {
+              const float4 bv = *reinterpret_cast<const float4*>(Wb + kk * BN);
+#pragma unroll
+              for (int i = 0; i < kTM; ++i) {
+                const float av = Ab[i * kAStride + kk];
+                acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+                acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+                acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+                acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+              }
+            }
+          }
+          __syncthreads();
+        }
+
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          const int m = m0 + ty * kTM + i;
+          if (m > m_hi) continue;
+          const int g = m * u + p;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int co = n0 + tx * 4 + j;
+            if (co >= C) continue;
+            const float v = (g >= 0 && g < seq) ? rnd<T>(acc[i][j] + to_f(bias[co])) : 0.f;
+            dst[(long)(g - g0) * C + co] = from_f<T>(v);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads) mrf_stage_kernel(StageArgs a) {
   extern __shared__ float4 smem4[];
@@ -194,8 +299,10 @@ __global__ void __launch_bounds__(kThreads) mrf_stage_kernel(StageArgs a) {
   const int C = a.C, seq = a.seq, H = a.halo, hp = a.post_halo, tile = a.tile;
   const int work = tile + 2 * H;
   const int arows = tile + 2 * hp;
-  T* bufA = static_cast<T*>(a.scratch) + (long)blockIdx.x * 2 * work * C;
+  const bool pre = a.pre_w != nullptr;
+  T* bufA = static_cast<T*>(a.scratch) + (long)blockIdx.x * (pre ? 3 : 2) * work * C;
   T* bufB = bufA + (long)work * C;
+  T* bufU = bufB + (long)work * C;  // the upsampled window (pre only)
   float* accb = a.acc + (long)blockIdx.x * arows * C;
   const int n_items = a.batch * a.n_tiles;
 
@@ -204,6 +311,16 @@ __global__ void __launch_bounds__(kThreads) mrf_stage_kernel(StageArgs a) {
     const int t0 = (item % a.n_tiles) * tile;
     const int g0 = t0 - H;  // sequence row of window row 0
     const T* xb = x + (long)b * seq * C;
+    long x_off = g0;
+    if (pre) {
+      const int seq_in = seq / a.stride;
+      upsample_rows<T, BN>(static_cast<const T*>(a.pre_w), static_cast<const T*>(a.pre_b),
+                           x + (long)b * seq_in * a.cin, seq_in, a.cin, C, a.stride, a.taps,
+                           a.pre_pad, bufU, g0, work, seq, As, Ws);
+      __syncthreads();
+      xb = bufU;
+      x_off = 0;
+    }
 
     for (int rb = 0; rb < a.n_rb; ++rb) {
       const int* dsc = a.desc + 3 * rb * a.convs_per_rb;
@@ -211,9 +328,9 @@ __global__ void __launch_bounds__(kThreads) mrf_stage_kernel(StageArgs a) {
       for (int j = 0; j < a.convs_per_rb; ++j) r_total += (dsc[3 * j] - 1) * dsc[3 * j + 1] / 2;
 
       const T* h = xb;
-      long h_off = g0;
+      long h_off = x_off;
       const T* prev = xb;
-      long prev_off = g0;
+      long prev_off = x_off;
       int r_done = 0;
       for (int j = 0; j < a.convs_per_rb; ++j) {
         const int k = dsc[3 * j], d = dsc[3 * j + 1];
@@ -311,8 +428,15 @@ struct Args {
   const bf16* post_w;  // (7, C) or null
   const bf16* post_b;  // (1,)
   void* y;             // (B, T, C) bf16, or (B, T) fp32 with post
-  bf16* scratch;       // (2 * n_rb + post) planes of (B, T, C)
+  bf16* scratch;       // (2 * n_rb + post + pre) planes of (B, T, C)
   int batch, seq, C, cpad, kc, n_rb, convs_per_rb, pair_size, max_ext;
+  // the folded upsampler (pre_w != null): x above is then its output plane
+  // `up`, and xin (B, T_in, cin) the stage's input
+  const bf16* xin;
+  const bf16* pre_w;   // (u, taps, cin, C) phase-split taps
+  const bf16* pre_b;   // (C,)
+  bf16* up;
+  int cin, cpad_in, kc_in, stride, taps, pre_pad, seq_in;
 };
 
 template <int BN>
@@ -326,12 +450,18 @@ struct Tile {
 
 __host__ __device__ inline int align8(int v) { return (v + 7) & ~7; }
 
-// Shared memory (bytes) of the kernel; the host computes the same.
-__host__ __device__ inline int weight_ring_bytes(int bn, int kc) {
-  return kStages * kc * (bn + kPad) * 2;
+// Shared memory of the kernel; the host computes the same. The operand
+// window (elements) holds 128 + max_ext rows of cpad, and with a folded
+// upsampler also 128 + taps - 1 rows of cpad_in (cpad_in = 0: none).
+__host__ __device__ inline int window_elems(int cpad, int max_ext, int cpad_in, int taps) {
+  const int mrf = (kBM + max_ext) * (cpad + kPad);
+  const int pre = cpad_in > 0 ? (kBM + taps - 1) * (cpad_in + kPad) : 0;
+  return align8(mrf > pre ? mrf : pre);
 }
-__host__ __device__ inline int stage_smem(int bn, int cpad, int kc, int max_ext) {
-  return align8((kBM + max_ext) * (cpad + kPad)) * 2 + weight_ring_bytes(bn, kc);
+__host__ __device__ inline int stage_smem(int bn, int cpad, int kc, int max_ext, int cpad_in,
+                                          int kc_in, int taps) {
+  const int k = kc_in > kc ? kc_in : kc;
+  return window_elems(cpad, max_ext, cpad_in, taps) * 2 + kStages * k * (bn + kPad) * 2;
 }
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -383,31 +513,32 @@ __device__ __forceinline__ uint4 lrelu8(uint4 v, float slope) {
   return v;
 }
 
-// Weight chunk q of a conv (tap q / kchunks, input channels from
-// (q % kchunks) * kc, output columns [n0, n0 + BN)) into a ring slot;
-// channels and columns past C read as zero.
+// Weight chunk q of a conv with (K, cin, C) taps (tap q / kchunks, input
+// channels from (q % kchunks) * kc, output columns [n0, n0 + BN)) into a
+// ring slot; channels past cin and columns past C read as zero.
 template <int BN>
 __device__ __forceinline__ void load_w_chunk(bf16* dst, const bf16* w, int q, int kchunks, int kc,
-                                             int C, int n0) {
+                                             int cin, int C, int n0) {
   constexpr int PR = BN / 8;  // 16-byte pieces per row
   const int tap = q / kchunks, ci0 = (q % kchunks) * kc;
   for (int e = threadIdx.x; e < kc * PR; e += kThreads) {
     const int row = e / PR, col = (e % PR) * 8;
     const int ci = ci0 + row, co = n0 + col;
-    const bool ok = ci < C && co < C;
-    cp_async16(dst + row * Tile<BN>::WS + col, ok ? w + ((long)tap * C + ci) * C + co : w, ok);
+    const bool ok = ci < cin && co < C;
+    cp_async16(dst + row * Tile<BN>::WS + col, ok ? w + ((long)tap * cin + ci) * C + co : w, ok);
   }
 }
 
-// One kBM x BN output tile of a 'same' dilated conv into fp32 registers:
-// acc[m][n] = sum_tap sum_ci A[a0 + m + tap*d][ci] * w[tap][ci][n0 + n].
-// A is bf16 in shared memory (row stride as, rows past a_rows - 1 clamped:
-// they feed only output rows the caller discards). Ends with the block
-// synchronised and the weight ring drained.
+// One kBM x BN output tile of a dilated conv into fp32 registers:
+// acc[m][n] = sum_tap sum_ci A[a0 + m + tap*d][ci] * w[tap][ci][n0 + n],
+// ci over cin (padded to cpad), n over C. A is bf16 in shared memory (row
+// stride as, rows past a_rows - 1 clamped: they feed only output rows the
+// caller discards). Ends with the block synchronised and the weight ring
+// drained.
 template <int BN>
 __device__ void conv_core(float (&acc)[Tile<BN>::MT][4][4], const bf16* A, int as, int a0,
-                          int a_rows, const bf16* w, int k, int d, int C, int cpad, int kc,
-                          int n0, bf16* ring) {
+                          int a_rows, const bf16* w, int k, int d, int C, int cin, int cpad,
+                          int kc, int n0, bf16* ring) {
   using T = Tile<BN>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm0 = (warp / T::WARPS_N) * T::WM, wn0 = (warp % T::WARPS_N) * 32;
@@ -422,14 +553,15 @@ __device__ void conv_core(float (&acc)[Tile<BN>::MT][4][4], const bf16* A, int a
   const int slot = kc * T::WS;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nq) load_w_chunk<BN>(ring + s * slot, w, s, kchunks, kc, C, n0);
+    if (s < nq) load_w_chunk<BN>(ring + s * slot, w, s, kchunks, kc, cin, C, n0);
     cp_async_commit();
   }
   for (int q = 0; q < nq; ++q) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // chunk q landed for all; chunk q - 1's slot is free
     const int nxt = q + kStages - 1;
-    if (nxt < nq) load_w_chunk<BN>(ring + (nxt % kStages) * slot, w, nxt, kchunks, kc, C, n0);
+    if (nxt < nq)
+      load_w_chunk<BN>(ring + (nxt % kStages) * slot, w, nxt, kchunks, kc, cin, C, n0);
     cp_async_commit();
     const bf16* wc = ring + (q % kStages) * slot;
     const int tap = q / kchunks, ci0 = (q % kchunks) * kc;
@@ -508,13 +640,51 @@ __global__ void __launch_bounds__(kThreads, MINB) mrf_stage_tc_kernel(Args a) {
   using T = Tile<BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int as = a.cpad + kPad;
+  const bool pre = a.pre_w != nullptr;
   bf16* A = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ring = A + align8((kBM + a.max_ext) * as);
+  bf16* ring = A + window_elems(a.cpad, a.max_ext, pre ? a.cpad_in : 0, a.taps);
   cg::grid_group grid = cg::this_grid();
   const int C = a.C, seq = a.seq;
   const long plane = (long)a.batch * seq * C;
   const int m_tiles = (seq + kBM - 1) / kBM, n_tiles = (C + BN - 1) / BN;
   const int per_rb = a.batch * m_tiles * n_tiles;
+
+  // the folded upsampler: phase p of rows m*u + p, 128 input rows a tile
+  if (pre) {
+    const int as_in = a.cpad_in + kPad, rows = kBM + a.taps - 1;
+    const int mt_in = (a.seq_in + kBM - 1) / kBM;
+    const int per_phase = a.batch * mt_in * n_tiles;
+    for (int item = blockIdx.x; item < a.stride * per_phase; item += gridDim.x) {
+      const int p = item / per_phase;
+      int rest = item % per_phase;
+      const int n0 = (rest % n_tiles) * BN;
+      rest /= n_tiles;
+      const int m0 = (rest % mt_in) * kBM, b = rest / mt_in;
+      const int off = (p + a.pre_pad) / a.stride - (a.taps - 1);
+      stage_window(A, as_in, a.xin + (long)b * a.seq_in * a.cin, m0 + off, rows, a.seq_in, a.cin,
+                   a.cpad_in);
+      float acc[T::MT][4][4];
+      conv_core<BN>(acc, A, as_in, 0, rows, a.pre_w + (long)p * a.taps * a.cin * C, a.taps, 1, C,
+                    a.cin, a.cpad_in, a.kc_in, n0, ring);
+      bf16* dst = a.up + (long)b * seq * C;
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int co = n0 + frag_col<BN>(jj);
+          if (co >= C) continue;
+          const float b0 = bf(a.pre_b[co]), b1 = bf(a.pre_b[co + 1]);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int m = m0 + frag_row<BN>(i, 2 * h2);
+            if (m >= a.seq_in) continue;
+            *reinterpret_cast<__nv_bfloat162*>(dst + ((long)m * a.stride + p) * C + co) =
+                __halves2bfloat162(tobf(acc[i][jj][2 * h2] + b0), tobf(acc[i][jj][2 * h2 + 1] + b1));
+          }
+        }
+    }
+    grid.sync();
+  }
 
   // buffer codes: 0 = x, 1 and 2 = the resblock's two scratch planes
   int h_code = 0, prev_code = 0;
@@ -538,7 +708,7 @@ __global__ void __launch_bounds__(kThreads, MINB) mrf_stage_tc_kernel(Args a) {
       const int rows = kBM + (k - 1) * d;
       stage_window(A, as, src, m0 - r, rows, seq, C, a.cpad);
       float acc[T::MT][4][4];
-      conv_core<BN>(acc, A, as, 0, rows, a.w + dsc[2], k, d, C, a.cpad, a.kc, n0, ring);
+      conv_core<BN>(acc, A, as, 0, rows, a.w + dsc[2], k, d, C, C, a.cpad, a.kc, n0, ring);
       const bf16* bias = a.bias + (long)(rb * a.convs_per_rb + j) * C;
 #pragma unroll
       for (int i = 0; i < T::MT; ++i)
@@ -631,11 +801,18 @@ int hifigan_mrf_stage_smem(int C, int max_k, int max_ext, int* a_floats_out) {
 }
 
 // The fp32 SIMT body. Returns the cudaError_t of the launch.
+// With pre_w (the folded upsampler, phase-split taps) x is (B, seq / stride,
+// cin); max_k and max_ext then cover its taps too.
 int hifigan_mrf_stage(const void* x, const void* w, const void* bias,
-                      const int* desc, const void* post_w, const void* post_b, void* y,
+                      const int* desc, const void* post_w, const void* post_b,
+                      const void* pre_w, const void* pre_b, void* y,
                       void* scratch, float* acc, int batch, int seq, int C, int n_rb,
                       int convs_per_rb, int pair_size, int tile, int halo, int post_halo,
-                      int max_k, int max_ext, int grid, void* stream) {
+                      int max_k, int max_ext, int grid, int cin, int stride, int taps,
+                      int pre_pad, void* stream) {
+  if (pre_w != nullptr && (stride < 1 || seq % stride != 0 || taps < 1 || cin < 1 ||
+                           taps > max_k || taps - 1 > max_ext))
+    return static_cast<int>(cudaErrorInvalidValue);
   StageArgs a;
   a.x = x;
   a.w = w;
@@ -643,6 +820,12 @@ int hifigan_mrf_stage(const void* x, const void* w, const void* bias,
   a.desc = desc;
   a.post_w = post_w;
   a.post_b = post_b;
+  a.pre_w = pre_w;
+  a.pre_b = pre_b;
+  a.cin = cin;
+  a.stride = stride;
+  a.taps = taps;
+  a.pre_pad = pre_pad;
   a.y = y;
   a.scratch = scratch;
   a.acc = acc;
@@ -674,12 +857,14 @@ static void tc_tiling(int C, int* bn, int* cpad, int* kc) {
   *kc = *cpad % 64 == 0 ? 64 : *cpad % 32 == 0 ? 32 : 16;
 }
 
-// Shared memory (bytes) of the tensor-core body for width C and a widest
-// conv extent (k-1)*d of max_ext rows (ops/resblock_tail.py::tc_smem).
-static int tc_stage_smem(int C, int max_ext) {
-  int bn, cpad, kc;
+// Shared memory (bytes) of the tensor-core body for width C, a widest conv
+// extent (k-1)*d of max_ext rows and, with a folded upsampler (cin > 0), its
+// input width and taps (ops/resblock_tail.py::tc_smem).
+static int tc_stage_smem(int C, int max_ext, int cin, int taps) {
+  int bn, cpad, kc, bn_in = 0, cpad_in = 0, kc_in = 0;
   tc_tiling(C, &bn, &cpad, &kc);
-  return tc::stage_smem(bn, cpad, kc, max_ext);
+  if (cin > 0) tc_tiling(cin, &bn_in, &cpad_in, &kc_in);
+  return tc::stage_smem(bn, cpad, kc, max_ext, cpad_in, kc_in, taps);
 }
 
 // Co-resident blocks per SM of the tensor-core kernel for width C at this
@@ -696,15 +881,20 @@ int hifigan_mrf_tc_blocks_per_sm(int C, int smem, int* out) {
 
 // The bf16 tensor-core body, launched cooperatively: grid at most the
 // co-resident blocks (else cudaErrorCooperativeLaunchTooLarge). smem must be
-// tc_stage_smem's value; scratch holds (2 * n_rb + (post_w != null))
-// planes of batch * seq * C bf16. Returns the cudaError_t of the launch.
+// tc_stage_smem's value; scratch holds (2 * n_rb + (post_w != null) +
+// (pre_w != null)) planes of batch * seq * C bf16. With pre_w (the folded
+// upsampler's phase-split taps) x is (batch, seq / stride, cin). Returns the
+// cudaError_t of the launch.
 int hifigan_mrf_stage_tc(const void* x, const void* w, const void* bias, const int* desc,
-                         const void* post_w, const void* post_b, void* y, void* scratch,
-                         int batch, int seq, int C, int n_rb, int convs_per_rb, int pair_size,
-                         int max_ext, int grid, int smem, void* stream) {
+                         const void* post_w, const void* post_b, const void* pre_w,
+                         const void* pre_b, void* y, void* scratch, int batch, int seq, int C,
+                         int n_rb, int convs_per_rb, int pair_size, int max_ext, int grid,
+                         int smem, int cin, int stride, int taps, int pre_pad, void* stream) {
+  const bool pre = pre_w != nullptr;
   if (C < 8 || C % 8 != 0 || batch < 1 || seq < 1 || grid < 1 || n_rb < 1 ||
       convs_per_rb < 1 || pair_size < 1 || convs_per_rb % pair_size != 0 ||
-      smem != tc_stage_smem(C, max_ext))
+      (pre && (cin < 8 || cin % 8 != 0 || stride < 1 || seq % stride != 0 || taps < 1)) ||
+      smem != tc_stage_smem(C, max_ext, pre ? cin : 0, taps))
     return static_cast<int>(cudaErrorInvalidValue);
   tc::Args a;
   a.x = static_cast<const tc::bf16*>(x);
@@ -724,6 +914,26 @@ int hifigan_mrf_stage_tc(const void* x, const void* w, const void* bias, const i
   a.max_ext = max_ext;
   int bn;
   tc_tiling(C, &bn, &a.cpad, &a.kc);
+  a.xin = nullptr;
+  a.pre_w = static_cast<const tc::bf16*>(pre_w);
+  a.pre_b = static_cast<const tc::bf16*>(pre_b);
+  a.up = nullptr;
+  a.cin = a.cpad_in = a.kc_in = a.seq_in = a.pre_pad = 0;
+  a.stride = 1;
+  a.taps = 0;
+  if (pre) {
+    // the upsampled x gets the plane after the resblocks' (and the mean's)
+    int bn_in;
+    a.up = a.scratch + (2L * n_rb + (post_w != nullptr ? 1 : 0)) * batch * seq * C;
+    a.xin = a.x;
+    a.x = a.up;
+    a.cin = cin;
+    tc_tiling(cin, &bn_in, &a.cpad_in, &a.kc_in);
+    a.stride = stride;
+    a.taps = taps;
+    a.pre_pad = pre_pad;
+    a.seq_in = seq / stride;
+  }
   const void* fn = tc::kernel_for(bn, a.cpad);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

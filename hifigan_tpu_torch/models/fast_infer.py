@@ -4,7 +4,9 @@ PyTorch port of ``hifigan_tpu/models/fast_infer.py::make_fast_vocoder``:
 conv_pre, the leaky ReLUs and the ConvTranspose1d upsamplers run as torch
 ops; every stage's MRF goes through
 :func:`hifigan_tpu_torch.ops.resblock_tail.fused_tail_stage`; conv_post is
-folded into the last stage's kernel unless ``fold_post=False``.
+folded into the last stage's kernel unless ``fold_post=False``; with
+``fold_up=True`` the stages :func:`folds_upsampler` names take their leaky
+ReLU and upsampler into the kernel too.
 """
 
 from __future__ import annotations
@@ -19,7 +21,21 @@ from hifigan_tpu_torch.ops.resblock_tail import (
     fused_tail_stage,
     pack_generator_tail,
     prepare_post,
+    prepare_upsample,
 )
+
+
+def folds_upsampler(h: Any, stage: int) -> bool:
+    """Whether ``fold_up=True`` folds stage ``stage``'s upsampler, as the
+    JAX package chooses: its kernel folds time into 128 / C lanes and takes
+    the upsampler where the input's lanes match, which is stride 2 with a
+    time block the stride divides (stages 2 and 3 of V1 and V2, no V3
+    stage). The CUDA kernel takes any stride; the choice is kept so both
+    packages fold the same stages."""
+    u = h["upsample_rates"][stage]
+    ch = h["upsample_initial_channel"] // 2 ** (stage + 1)
+    block = max(128 // ch, 1)
+    return u == 2 and block % u == 0
 
 
 def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torch.bfloat16,
@@ -33,11 +49,11 @@ def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torc
     for the TPU's VMEM, and the CUDA kernel takes any width. ``tile`` fixes
     the fp32 body's time tile (default: per call, from the batch and the
     sequence length, see ``auto_tile``); the bf16 body walks the whole
-    sequence in one cooperative launch per stage and takes no tile. ``fold_up`` (the upsampler folded
-    into the kernel) is not ported.
+    sequence in one cooperative launch per stage and takes no tile.
+    ``fold_up`` runs the leaky ReLU and the upsampler of the stages
+    :func:`folds_upsampler` names inside their kernel launch (off by default,
+    as in the JAX package).
     """
-    if fold_up:
-        raise NotImplementedError("fold_up (upsampler folded into the kernel) is not ported")
     dev = resolve_device(device)
     num_stages = len(h["upsample_rates"])
 
@@ -50,20 +66,26 @@ def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torc
            for i in range(num_stages)]
     post_w, post_b = param("conv_post.weight").permute(2, 1, 0), param("conv_post.bias")
 
-    stages = [(u, k, pack_generator_tail(h, folded_state_dict, i, dtype=dtype, device=dev))
-              for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"]))]
+    stages = []
+    for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"])):
+        pre = (prepare_upsample(folded_state_dict, i, u, (k - u) // 2, dtype=dtype, device=dev)
+               if fold_up and folds_upsampler(h, i) else None)
+        stages.append((u, k, pack_generator_tail(h, folded_state_dict, i, dtype=dtype, device=dev),
+                       pre))
     post_pack = prepare_post(folded_state_dict, dtype=dtype, device=dev) if fold_post else None
 
     @torch.no_grad()
     def fn(mel: torch.Tensor) -> torch.Tensor:
         x = mel.to(device=dev, dtype=dtype).transpose(1, 2)
         x = conv1d(x, pre_w, pre_b, padding=3)
-        for i, (u, k, packed) in enumerate(stages):
-            x = leaky_relu(x, LRELU_SLOPE)
-            up_w, up_b = ups[i]
-            x = conv_transpose1d(x, up_w, up_b, stride=u, padding=(k - u) // 2).contiguous()
+        for i, (u, k, packed, pre) in enumerate(stages):
+            if pre is None:
+                x = leaky_relu(x, LRELU_SLOPE)
+                up_w, up_b = ups[i]
+                x = conv_transpose1d(x, up_w, up_b, stride=u, padding=(k - u) // 2)
             last_post = post_pack if i == num_stages - 1 else None
-            x = fused_tail_stage(x, packed, post_pack=last_post, tile=tile)
+            x = fused_tail_stage(x.contiguous(), packed, post_pack=last_post, tile=tile,
+                                 pre_pack=pre)
         if post_pack is not None:
             return x.transpose(1, 2)  # tail already folded in the kernel
         x = conv1d(leaky_relu(x, 0.01), post_w, post_b, padding=3)

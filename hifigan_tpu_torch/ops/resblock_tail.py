@@ -9,6 +9,10 @@ with 'same' dilated convs zero-padded at the true sequence edges before every
 conv, each conv's output rounded to the working dtype and the mean taken in
 fp32. ``post_pack`` folds the generator tail (lrelu 0.01 -> conv_post k7
 C->1 -> tanh) into the same pass and returns (B, T, 1) float32.
+``pre_pack`` (:func:`prepare_upsample`) folds the stage's head in front of
+it: x is then the previous stage's output (B, T_in, C_in) and the stage
+first computes lrelu(0.1) -> ConvTranspose1d(stride u) + bias, rounded to
+the working dtype once, so T = T_in * u.
 
 The kernel (``csrc/resblock_tail.cu``) is bound by arithmetic: a V1 request
 of 256 mel frames at B=1 does about 152 GFLOP of MRF work, and the source
@@ -23,7 +27,8 @@ device-memory ping-pong buffers: no halo recompute, every SM busy at B=1.
 The TPU kernel's time-blocked tables, lane folding and VMEM split heuristic
 are not carried over: the CUDA kernel takes the plain per-conv taps
 (K, C, C) and each conv's dilation, packed once on the host by
-:func:`pack_generator_tail`.
+:func:`pack_generator_tail`, and the upsampler's taps split by output phase
+(:func:`prepare_upsample`), which works for any stride.
 
 - :func:`fused_tail_stage_reference` is the plain PyTorch version (conv by
   conv with ``F.conv1d``, fp32 accumulation).
@@ -129,6 +134,52 @@ def prepare_post(state_dict: dict, dtype: torch.dtype = torch.float32,
     }
 
 
+def prepare_upsample(state_dict: dict, stage: int, stride: int, padding: int,
+                     dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cpu") -> dict:
+    """Pack the upsampler ``ups.{stage}`` (ConvTranspose1d weight (C_in, C_out,
+    k), bias) for ``fused_tail_stage(pre_pack=...)``.
+
+    torch's transposed conv writes input row i into output rows
+    i * stride - padding + tap. Split by output phase p, output row
+    m * stride + p is a dilation-1 conv over the input::
+
+        bias + sum_t lrelu(x[m + offset(p) + t]) @ w[p, t]
+
+    with ``taps`` = ceil(k / stride) taps (t = 0 is the earliest input row;
+    a tap past the kernel is zero) and :func:`pre_offset`. ``w`` holds
+    (stride, taps, C_in, C_out) in ``dtype``; ``weight`` keeps the torch
+    layout for the plain version. The stage then has T_in * stride rows,
+    which needs k - 2 * padding == stride (every HiFi-GAN upsampler).
+    """
+    weight = state_dict[f"ups.{stage}.weight"].detach()
+    c_in, c_out, k = (int(v) for v in weight.shape)
+    if k - 2 * padding != stride:
+        raise ValueError(f"a folded upsampler needs k - 2 * padding == stride, got k={k}, "
+                         f"padding={padding}, stride={stride}")
+    taps = -(-k // stride)
+    poly = torch.zeros((stride, taps, c_in, c_out), dtype=weight.dtype)
+    for p in range(stride):
+        q = (p + padding) % stride
+        for t in range(taps):
+            tap = q + (taps - 1 - t) * stride
+            if tap < k:
+                poly[p, t] = weight[:, :, tap]
+    return {
+        "w": poly.reshape(-1).to(device=device, dtype=dtype),
+        "bias": state_dict[f"ups.{stage}.bias"].detach().reshape(-1).to(device=device,
+                                                                       dtype=dtype),
+        "weight": weight.to(device=device, dtype=dtype),
+        "stride": stride, "k": k, "padding": padding, "taps": taps,
+        "c_in": c_in, "channels": c_out,
+    }
+
+
+def pre_offset(pre_pack: dict, phase: int) -> int:
+    """Input row of tap 0 for output row m * stride + phase, relative to m."""
+    return (phase + pre_pack["padding"]) // pre_pack["stride"] - (pre_pack["taps"] - 1)
+
+
 def _conv_f32(x: torch.Tensor, kio: torch.Tensor, bias: torch.Tensor, d: int) -> torch.Tensor:
     """'same' conv over (B, C, T) with fp32 accumulation."""
     k = kio.shape[0]
@@ -136,12 +187,22 @@ def _conv_f32(x: torch.Tensor, kio: torch.Tensor, bias: torch.Tensor, d: int) ->
                     padding=_radius(k, d), dilation=d)
 
 
-def fused_tail_stage_reference(x: torch.Tensor, packed: dict,
-                               post_pack: dict | None = None) -> torch.Tensor:
+def upsample_reference(x: torch.Tensor, pre_pack: dict) -> torch.Tensor:
+    """The folded head alone, plainly: lrelu(0.1), then the transposed conv
+    with fp32 accumulation and its bias, rounded to x's dtype once; (B, C,
+    T_in * stride)."""
+    xin = leaky_relu(x, LRELU_SLOPE).transpose(1, 2).float()
+    y = F.conv_transpose1d(xin, pre_pack["weight"].float(), pre_pack["bias"].float(),
+                           stride=pre_pack["stride"], padding=pre_pack["padding"])
+    return y.to(x.dtype)
+
+
+def fused_tail_stage_reference(x: torch.Tensor, packed: dict, post_pack: dict | None = None,
+                               pre_pack: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_tail_stage`, conv by conv."""
     dtype = x.dtype
     c = packed["channels"]
-    xc = x.transpose(1, 2)
+    xc = x.transpose(1, 2) if pre_pack is None else upsample_reference(x, pre_pack)
     acc = None
     meta = packed["convs"]
     per, ps = packed["convs_per_rb"], packed["pair_size"]
@@ -199,17 +260,25 @@ def tc_tiling(c: int) -> tuple[int, int, int]:
     return bn, cpad, kc
 
 
-def tc_smem(c: int, max_ext: int) -> int:
+def tc_smem(c: int, max_ext: int, pre: dict | None = None) -> int:
     """Shared memory (bytes) of the tensor-core body (``tc_stage_smem`` in the source):
-    the operand window of 128 + max_ext rows and the weight ring."""
+    the operand window of 128 + max_ext rows and the weight ring; with a
+    folded upsampler the window also holds 128 + taps - 1 input rows of
+    C_in and the ring that phase's chunks."""
     bn, cpad, kc = tc_tiling(c)
-    return (_round_up((TC_BM + max_ext) * (cpad + TC_PAD), 8) * 2
-            + TC_STAGES * kc * (bn + TC_PAD) * 2)
+    window = (TC_BM + max_ext) * (cpad + TC_PAD)
+    if pre is not None:
+        _, cpad_in, kc_in = tc_tiling(pre["c_in"])
+        window = max(window, (TC_BM + pre["taps"] - 1) * (cpad_in + TC_PAD))
+        kc = max(kc, kc_in)
+    return _round_up(window, 8) * 2 + TC_STAGES * kc * (bn + TC_PAD) * 2
 
 
 def plan_tail_stage(packed: dict, batch: int, seq: int, dtype: torch.dtype, post: bool,
-                    sm_count: int, blocks_per_sm, tile: int | None = None) -> dict:
-    """How one stage call runs on the card, decided on the host.
+                    sm_count: int, blocks_per_sm, tile: int | None = None,
+                    pre: dict | None = None) -> dict:
+    """How one stage call runs on the card, decided on the host. ``seq`` is
+    the stage's length (T_in * stride with a folded upsampler ``pre``).
 
     ``blocks_per_sm(channels, smem)`` gives the co-resident blocks per SM
     (the card's occupancy query in the wrapper). Returns ``body`` ('simt'
@@ -218,26 +287,37 @@ def plan_tail_stage(packed: dict, batch: int, seq: int, dtype: torch.dtype, post
     ``tile`` (the time tile, or the 128-row conv tile), ``grid``, ``smem``
     (bytes; None for the SIMT body, which sizes its own), ``items`` (work
     items, of the busiest phase for the cooperative schedule) and
-    ``scratch`` (elements of device scratch). ``tile`` fixes the SIMT body's.
+    ``scratch`` (elements of device scratch: with ``pre`` one more window
+    per SIMT block, or one more (B, T, C) plane, holds the upsampled x).
+    ``tile`` fixes the SIMT body's.
     """
     c = packed["channels"]
     hp = (_POST_K - 1) // 2 if post else 0
+    if pre is not None and (pre["channels"] != c or seq % pre["stride"]):
+        raise ValueError(f"pre_pack gives {pre['channels']} channels at stride {pre['stride']}; "
+                         f"the stage has {c} channels and {seq} rows")
     if dtype == torch.float32:
         tile = tile or auto_tile(batch, seq)
         items = batch * -(-seq // tile)
         grid = min(items, 2 * sm_count)
+        bufs = 2 if pre is None else 3
         return {"body": "simt", "schedule": "tiled", "tile": tile, "grid": grid, "smem": None,
-                "items": items, "scratch": grid * 2 * (tile + 2 * (packed["halo"] + hp)) * c}
-    if c % 8:
-        raise ValueError(f"the bf16 body takes widths that are multiples of 8, got {c}")
+                "items": items,
+                "scratch": grid * bufs * (tile + 2 * (packed["halo"] + hp)) * c}
+    if c % 8 or (pre is not None and pre["c_in"] % 8):
+        raise ValueError(f"the bf16 body takes widths that are multiples of 8, got {c}"
+                         + ("" if pre is None else f" from {pre['c_in']}"))
     max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
-    smem = tc_smem(c, max_ext)
+    smem = tc_smem(c, max_ext, pre)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the bf16 body needs {smem} bytes of shared memory at C={c}, more "
                          f"than {SMEM_LIMIT}")
-    items = packed["n_rb"] * batch * -(-seq // TC_BM) * -(-c // tc_tiling(c)[0])
+    n_tiles = -(-c // tc_tiling(c)[0])
+    items = packed["n_rb"] * batch * -(-seq // TC_BM) * n_tiles
+    if pre is not None:  # the upsampling phase: one item per output phase and input tile
+        items = max(items, pre["stride"] * batch * -(-(seq // pre["stride"]) // TC_BM) * n_tiles)
     grid = min(items, blocks_per_sm(c, smem) * sm_count)
-    planes = 2 * packed["n_rb"] + (1 if post else 0)
+    planes = 2 * packed["n_rb"] + (1 if post else 0) + (1 if pre is not None else 0)
     return {"body": "tensor_core", "schedule": "cooperative", "tile": TC_BM, "grid": grid,
             "smem": smem, "items": items, "scratch": planes * batch * seq * c}
 
@@ -254,10 +334,10 @@ def _kernels():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         simt = lib.hifigan_mrf_stage
         simt.restype = ci
-        simt.argtypes = [vp] * 9 + [ci] * 12 + [vp]
+        simt.argtypes = [vp] * 11 + [ci] * 16 + [vp]
         tc = lib.hifigan_mrf_stage_tc
         tc.restype = ci
-        tc.argtypes = [vp] * 8 + [ci] * 9 + [vp]
+        tc.argtypes = [vp] * 10 + [ci] * 13 + [vp]
         occ = lib.hifigan_mrf_tc_blocks_per_sm
         occ.restype = ci
         occ.argtypes = [ci, ci, ctypes.POINTER(ci)]
@@ -281,71 +361,93 @@ def _blocks_per_sm(device_index: int, c: int, smem: int) -> int:
     return out.value
 
 
-def _check(x: torch.Tensor, packed: dict, post_pack: dict | None) -> None:
-    if x.dim() != 3 or x.shape[2] != packed["channels"]:
-        raise ValueError(f"x must be (B, T, {packed['channels']}), got {tuple(x.shape)}")
+def _check(x: torch.Tensor, packed: dict, post_pack: dict | None,
+           pre_pack: dict | None) -> None:
+    c_x = packed["channels"] if pre_pack is None else pre_pack["c_in"]
+    if x.dim() != 3 or x.shape[2] != c_x:
+        raise ValueError(f"x must be (B, T, {c_x}), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    tensors = [packed["w"], packed["bias"]] + ([post_pack["w"], post_pack["bias"]]
-                                               if post_pack is not None else [])
+    tensors = [packed["w"], packed["bias"]]
+    for extra in (post_pack, pre_pack):
+        if extra is not None:
+            tensors += [extra["w"], extra["bias"]]
     for t in tensors:
         if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
             raise ValueError("packed weights must be contiguous, on x's device, in x's dtype")
     if post_pack is not None and tuple(post_pack["w"].shape) != (_POST_K, packed["channels"]):
         raise ValueError(f"post_pack weights must be ({_POST_K}, {packed['channels']})")
+    if pre_pack is not None and pre_pack["channels"] != packed["channels"]:
+        raise ValueError(f"pre_pack gives {pre_pack['channels']} channels, the stage has "
+                         f"{packed['channels']}")
     if packed["desc"].device != x.device:
         raise ValueError("packed descriptors must be on x's device")
 
 
 def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = None,
-                     tile: int | None = None) -> torch.Tensor:
+                     tile: int | None = None, pre_pack: dict | None = None) -> torch.Tensor:
     """x (B, T, C) -> the stage's MRF output (B, T, C), or (B, T, 1) float32 with post_pack.
 
-    A CPU tensor takes :func:`fused_tail_stage_reference`; a CUDA tensor
-    launches the kernel (or raises). ``tile`` fixes the fp32 body's time
-    tile (default :func:`auto_tile`); the bf16 body walks the whole sequence.
+    With ``pre_pack`` x is the previous stage's output (B, T_in, C_in) and
+    the stage's leaky ReLU and upsampler run first, in the same launch; then
+    T = T_in * stride. A CPU tensor takes :func:`fused_tail_stage_reference`;
+    a CUDA tensor launches the kernel (or raises). ``tile`` fixes the fp32
+    body's time tile (default :func:`auto_tile`); the bf16 body walks the
+    whole sequence.
     """
     global LAUNCHES
     if x.device.type == "cpu":
-        return fused_tail_stage_reference(x, packed, post_pack)
+        return fused_tail_stage_reference(x, packed, post_pack, pre_pack)
     if x.device.type != "cuda":
         raise ValueError(f"fused_tail_stage runs on cpu or cuda, got {x.device}")
-    _check(x, packed, post_pack)
+    _check(x, packed, post_pack, pre_pack)
     kernels = _kernels()
-    b, t, c = x.shape
+    b, t_in, _ = x.shape
+    c = packed["channels"]
+    stride = 1 if pre_pack is None else pre_pack["stride"]
+    t = t_in * stride
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     plan = plan_tail_stage(packed, b, t, x.dtype, post_pack is not None, _sm_count(dev),
-                           functools.partial(_blocks_per_sm, dev), tile=tile)
+                           functools.partial(_blocks_per_sm, dev), tile=tile, pre=pre_pack)
     hp = (_POST_K - 1) // 2 if post_pack is not None else 0
     halo = packed["halo"] + hp
     if post_pack is not None:
         y = torch.empty((b, t, 1), dtype=torch.float32, device=x.device)
     else:
-        y = torch.empty_like(x)
+        y = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
     max_k = max(k for k, _, _ in packed["convs"])
     max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
-    post_w = post_pack["w"].data_ptr() if post_pack is not None else None
-    post_b = post_pack["bias"].data_ptr() if post_pack is not None else None
+
+    def ptr(pack, key):
+        return pack[key].data_ptr() if pack is not None else None
+
+    if pre_pack is not None:
+        pre = (pre_pack["c_in"], stride, pre_pack["taps"], pre_pack["padding"])
+    else:
+        pre = (0, 1, 0, 0)
     scratch = torch.empty(plan["scratch"], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan["body"] == "simt":
             acc = torch.empty(plan["grid"] * (plan["tile"] + 2 * hp) * c, dtype=torch.float32,
                               device=x.device)
+            taps = pre[2]
             rc = kernels["simt"](
-                x.data_ptr(), packed["w"].data_ptr(),
-                packed["bias"].data_ptr(), packed["desc"].data_ptr(), post_w, post_b,
-                y.data_ptr(), scratch.data_ptr(), acc.data_ptr(), b, t, c, packed["n_rb"],
-                packed["convs_per_rb"], packed["pair_size"], plan["tile"], halo, hp, max_k,
-                max_ext, plan["grid"], stream)
+                x.data_ptr(), packed["w"].data_ptr(), packed["bias"].data_ptr(),
+                packed["desc"].data_ptr(), ptr(post_pack, "w"), ptr(post_pack, "bias"),
+                ptr(pre_pack, "w"), ptr(pre_pack, "bias"), y.data_ptr(), scratch.data_ptr(),
+                acc.data_ptr(), b, t, c, packed["n_rb"], packed["convs_per_rb"],
+                packed["pair_size"], plan["tile"], halo, hp, max(max_k, taps),
+                max(max_ext, taps - 1), plan["grid"], *pre, stream)
         else:
             rc = kernels["tc"](
                 x.data_ptr(), packed["w"].data_ptr(), packed["bias"].data_ptr(),
-                packed["desc"].data_ptr(), post_w, post_b, y.data_ptr(), scratch.data_ptr(), b,
+                packed["desc"].data_ptr(), ptr(post_pack, "w"), ptr(post_pack, "bias"),
+                ptr(pre_pack, "w"), ptr(pre_pack, "bias"), y.data_ptr(), scratch.data_ptr(), b,
                 t, c, packed["n_rb"], packed["convs_per_rb"], packed["pair_size"], max_ext,
-                plan["grid"], plan["smem"], stream)
+                plan["grid"], plan["smem"], *pre, stream)
     if rc != 0:
         raise RuntimeError(f"fused_tail_stage kernel launch failed ({plan['body']} body): "
                            f"cudaError {rc}")

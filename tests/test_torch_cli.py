@@ -22,8 +22,7 @@ def _checkpoint_dir(tmp_path):
     return h, ckpt / "g_00000001"
 
 
-@pytest.mark.parametrize("fast", [False, True])
-def test_infer_writes_wav_on_cpu(tmp_path, fast):
+def _write_tone(tmp_path, fast, extra=()):
     h, ckpt = _checkpoint_dir(tmp_path)
     wavs = tmp_path / "wavs"
     wavs.mkdir()
@@ -32,11 +31,24 @@ def test_infer_writes_wav_on_cpu(tmp_path, fast):
     save_wav(str(wavs / "tone.wav"), tone, sr)
     argv = ["--input_wavs_dir", str(wavs), "--output_dir", str(tmp_path / "out"),
             "--checkpoint_file", str(ckpt), "--device", "cpu"] + (["--fast"] if fast else [])
-    infer.main(argv)
+    infer.main(argv + list(extra))
     data, out_sr = load_wav(str(tmp_path / "out" / "tone_generated.wav"))
     frames = (sr // 4) // h["hop_size"]  # reflect pad (n_fft - hop) / 2 a side
     assert out_sr == sr and data.shape == (1, frames * 16)
     assert np.isfinite(data).all() and np.abs(data).max() > 0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("stateful", [False, True])
+def test_infer_streaming_writes_wav_on_cpu(tmp_path, fast, stateful):
+    """--streaming_chunk 4 (and --streaming_state) write the whole file."""
+    _write_tone(tmp_path, fast, ["--streaming_chunk", "4"] + (["--streaming_state"]
+                                                              if stateful else []))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_infer_writes_wav_on_cpu(tmp_path, fast):
+    _write_tone(tmp_path, fast)
 
 
 def test_infer_e2e_writes_wav_on_cpu(tmp_path):
@@ -55,8 +67,31 @@ def test_pcm16_saturates_instead_of_wrapping():
     assert pcm.tolist() == [32767, -32768, 16384]
 
 
-def test_streaming_flags_raise(tmp_path):
-    h, ckpt = _checkpoint_dir(tmp_path)
-    with pytest.raises(NotImplementedError):
-        infer.main(["--input_wavs_dir", str(tmp_path), "--checkpoint_file", str(ckpt),
-                    "--device", "cpu", "--streaming_chunk", "32"])
+@pytest.mark.parametrize("stateful,fast", [(False, False), (False, True), (True, False),
+                                           (True, True)])
+def test_streaming_flags_match_the_jax_synthesize(stateful, fast):
+    """``synthesize`` with --streaming_chunk (the halo streamer over the
+    --fast or Generator apply) and --streaming_chunk --streaming_state (the
+    stateful streamer, bf16 as in JAX) against the JAX CLI's on the same
+    weights and mel: fp32 within 2e-4; where either side runs bf16 (--fast,
+    or the stateful streamer), within 2^-4 of the JAX waveform's peak, the
+    port's bf16 serving bound."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    from hifigan_tpu.cli import infer as jinfer
+    from tests.torch_port_helpers import folded_pair, random_mel
+
+    h = small_config("1")
+    fp, sd = folded_pair(h)
+    mel = random_mel(1, 40, seed=11)
+    a = SimpleNamespace(fast=fast, streaming_chunk=8, streaming_state=stateful)
+    ref = np.asarray(jinfer.synthesize(a, h, jinfer.make_apply(a, h, fp, True), fp,
+                                       jnp.asarray(mel)))
+    got = infer.synthesize(a, h, infer.make_apply(a, h, sd, torch.device("cpu")), sd,
+                           torch.from_numpy(mel))
+    assert isinstance(got, np.ndarray) and got.shape == ref.shape == (1, 1, 40 * 16)
+    bf16 = fast or stateful
+    tol = 2.0 ** -4 * np.abs(ref).max() if bf16 else 2e-4
+    assert np.abs(got - ref).max() <= tol

@@ -94,6 +94,84 @@ def test_kernel_matches_plain_bf16(card, no_tf32, name, stage, post, seq, batch)
     assert (got.float() - ref.float()).abs().max().item() <= 2.0 ** -4 * peak
 
 
+@pytest.mark.parametrize("name,stage,post,t_in,batch,dtype", [
+    ("v1", 2, False, 1000, 2, torch.bfloat16),   # C=64 from 128, ragged last input tile
+    ("v1", 3, True, 777, 1, torch.bfloat16),     # C=32 from 64, post conv folded
+    ("v2", 2, False, 259, 3, torch.bfloat16),    # C=16 from 32
+    ("v2", 3, True, 130, 1, torch.bfloat16),     # C=8 from 16: output padded to 16
+    ("v1", 2, False, 300, 2, torch.float32),     # the SIMT body
+    ("v1", 3, True, 257, 1, torch.float32),
+])
+def test_kernel_with_pre_pack_matches_plain(card, no_tf32, name, stage, post, t_in, batch, dtype):
+    """The folded upsampler (lrelu -> ConvTranspose1d stride 2) in both
+    bodies against the plain version: fp32 within 1e-4, bf16 within 2^-4
+    of the plain version's peak, as chip_smoke.py holds them."""
+    h = get_config(name)
+    sd = _state(h)
+    u, k = h["upsample_rates"][stage], h["upsample_kernel_sizes"][stage]
+    packed = ttail.pack_generator_tail(h, sd, stage, dtype=dtype, device=card)
+    pre = ttail.prepare_upsample(sd, stage, u, (k - u) // 2, dtype=dtype, device=card)
+    post_pack = ttail.prepare_post(sd, dtype=dtype, device=card) if post else None
+    g = torch.Generator(device=card).manual_seed(stage)
+    x = (torch.randn((batch, t_in, pre["c_in"]), device=card, generator=g) * 0.5).to(dtype)
+    launches = ttail.LAUNCHES
+    got = ttail.fused_tail_stage(x, packed, post_pack=post_pack, pre_pack=pre)
+    torch.cuda.synchronize()
+    assert ttail.LAUNCHES == launches + 1
+    ref = ttail.fused_tail_stage_reference(x, packed, post_pack, pre)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert got.shape[1] == t_in * u and bool(torch.isfinite(got).all())
+    peak = ref.float().abs().max().item()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -4 * peak
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@requires_cuda
+def test_fast_vocoder_fold_up_launches_kernel_per_stage(no_tf32):
+    """fold_up=True: every stage of a stride-2 config folds its upsampler,
+    still one launch per stage, within 2e-4 of the fp32 Generator."""
+    h = _config("1", 128)
+    sd = _state(h)
+    mel = torch.randn((2, 80, 20), generator=torch.Generator().manual_seed(3)) * 2 - 5
+    fast = make_fast_vocoder(h, sd, dtype=torch.float32, fold_up=True)
+    launches = ttail.LAUNCHES
+    got = fast(mel)
+    torch.cuda.synchronize()
+    assert ttail.LAUNCHES == launches + len(h["upsample_rates"])
+    gen = Generator(h, folded=True)
+    gen.load_state_dict(sd)
+    with torch.no_grad():
+        ref = gen(mel)
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    assert (got.cpu() - ref).abs().max().item() <= 2e-4
+
+
+@requires_cuda
+def test_streaming_vocoder_on_the_card_matches_the_generator(no_tf32):
+    """The stateful streamer with every stage's MRF in the kernel (fp32,
+    the SIMT body, at chunk lengths) equals the whole-utterance Generator
+    from the delay on, one launch per stage and chunk."""
+    from hifigan_tpu_torch.models.streaming import make_streaming_vocoder
+
+    h = _config("1", 128)
+    sd = _state(h)
+    mel = torch.randn((2, 80, 160), generator=torch.Generator().manual_seed(4)) * 2 - 5
+    init_state, step, delay = make_streaming_vocoder(h, sd, dtype=torch.float32)
+    state, outs = init_state(2), []
+    launches = ttail.LAUNCHES
+    for s in range(0, 160, 32):
+        state, wav = step(state, mel[:, :, s:s + 32])
+        outs.append(wav.cpu())
+    assert ttail.LAUNCHES == launches + 5 * len(h["upsample_rates"])
+    stream = torch.cat(outs, dim=-1)
+    gen = Generator(h, folded=True)
+    gen.load_state_dict(sd)
+    with torch.no_grad():
+        full = gen(mel)
+    total = full.shape[-1]
+    assert (stream[:, :, 2 * delay:] - full[:, :, delay:total - delay]).abs().max().item() <= 2e-4
+
+
 @requires_cuda
 def test_fast_vocoder_launches_kernel_per_stage(no_tf32):
     h = _config("1", 128)

@@ -11,11 +11,13 @@ import torch
 from hifigan_tpu_torch.cli import infer
 from hifigan_tpu_torch.cli import train as cli_train
 from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
+from hifigan_tpu_torch.models.streaming import make_streaming_vocoder
 from hifigan_tpu_torch.ops import conv_stack as tstack
 from hifigan_tpu_torch.ops import logmel as tlogmel
 from hifigan_tpu_torch.ops import msd_conv as tmsd
 from hifigan_tpu_torch.ops import resblock_tail as ttail
 from hifigan_tpu_torch.ops import stream_graph as tsg
+from hifigan_tpu_torch.parallel import halo as thalo
 from hifigan_tpu_torch.train.vocoder import create_train_state
 from tests.torch_port_helpers import folded_pair, small_config, tiny_train_config
 
@@ -53,7 +55,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "hifigan_tpu_torch/dsl/static_configs.py", "hifigan_tpu_torch/distill/train.py",
             "hifigan_tpu_torch/distill/model.py", "hifigan_tpu_torch/distill/losses.py",
             "hifigan_tpu_torch/ops/msd_conv.py", "hifigan_tpu_torch/ops/logmel.py",
-            "hifigan_tpu_torch/audio/mel.py", "hifigan_tpu_torch/models/layers.py"} <= rel
+            "hifigan_tpu_torch/audio/mel.py", "hifigan_tpu_torch/models/layers.py",
+            "hifigan_tpu_torch/models/streaming.py", "hifigan_tpu_torch/parallel/halo.py",
+            "hifigan_tpu_torch/parallel/__init__.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -66,6 +70,8 @@ def test_entry_points_without_device_raise_when_there_is_no_gpu(monkeypatch, tmp
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_fast_vocoder(h, sd)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_streaming_vocoder(h, sd)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         infer.inference(infer.build_parser().parse_args(
             ["--checkpoint_file", str(tmp_path / "g_00000000")]), h)
 
@@ -76,7 +82,7 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors(monkeypatch):
     packed = ttail.pack_generator_tail(h, sd, 1)
     calls = []
     monkeypatch.setattr(ttail, "fused_tail_stage_reference",
-                        lambda x, p, post_pack=None: calls.append(x.device) or x)
+                        lambda x, p, post_pack=None, pre_pack=None: calls.append(x.device) or x)
     launches = ttail.LAUNCHES
     ttail.fused_tail_stage(torch.zeros(1, 16, 8), packed)
     assert calls == [torch.device("cpu")] and ttail.LAUNCHES == launches
@@ -88,6 +94,15 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors(monkeypatch):
 def test_wrapper_has_no_fallback():
     """The CUDA branch launches or raises: no try/except in the wrapper."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(ttail.fused_tail_stage)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
+@pytest.mark.parametrize("fn", [make_fast_vocoder, make_streaming_vocoder,
+                                thalo.streaming_vocode, infer.synthesize])
+def test_serving_paths_have_no_fallback(fn):
+    """The fast, the stateful and the halo serving paths and the CLI's
+    choice among them catch nothing around a launch."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
 

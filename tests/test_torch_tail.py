@@ -15,7 +15,7 @@ from hifigan_tpu.ops.pallas import resblock_tail as jtail
 from hifigan_tpu_torch import config as tconfig
 from hifigan_tpu_torch.ops import resblock_tail as ttail
 from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, leaky_relu
-from tests.torch_port_helpers import folded_pair, small_config
+from tests.torch_port_helpers import fold_up_config, folded_pair, small_config
 
 
 @pytest.mark.parametrize("resblock,stage,post", [("1", 0, False), ("1", 1, True), ("2", 1, True)])
@@ -35,6 +35,57 @@ def test_fused_tail_stage_matches_pallas(resblock, stage, post):
     got = ttail.fused_tail_stage(torch.from_numpy(x), tpack, post_pack=tpost).numpy()
     assert got.shape == ref.shape == ((2, 200, 1) if post else (2, 200, ch))
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("resblock,post", [("1", True), ("2", False)])
+def test_fused_tail_stage_with_pre_pack_matches_pallas(resblock, post):
+    """The folded upsampler (lrelu -> ConvTranspose1d stride 2 -> MRF) on
+    the previous stage's output, against the Pallas kernel with
+    ``prepare_upsample`` at the JAX test's bound (tests/test_pallas_tail.py)."""
+    h = fold_up_config(resblock)
+    fp, sd = folded_pair(h)
+    u, k = h["upsample_rates"][1], h["upsample_kernel_sizes"][1]
+    x = (np.random.default_rng(5).standard_normal((2, 96, 16)) * 0.3).astype(np.float32)
+    jpre = jtail.prepare_upsample(fp["ups_1"], u, (k - u) // 2, 16)
+    jpost = jtail.prepare_post(fp["conv_post"], 16) if post else None
+    ref = np.asarray(jtail.fused_tail_stage(jnp.asarray(x), jtail.pack_generator_tail(h, fp, 1, 16),
+                                            interpret=True, tile_blocks=4, post_pack=jpost,
+                                            pre_pack=jpre))
+    pre = ttail.prepare_upsample(sd, 1, u, (k - u) // 2)
+    got = ttail.fused_tail_stage(torch.from_numpy(x), ttail.pack_generator_tail(h, sd, 1),
+                                 post_pack=ttail.prepare_post(sd) if post else None,
+                                 pre_pack=pre).numpy()
+    assert got.shape == ref.shape == ((2, 192, 1) if post else (2, 192, 8))
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("k,stride", [(4, 2), (16, 8), (11, 5), (8, 4), (5, 2)])
+def test_prepare_upsample_phase_split_is_the_transposed_conv(k, stride):
+    """Output row m * stride + p of the transposed conv is the phase-p conv
+    of ``taps`` input rows from m + pre_offset; a tap past k is zero. Odd
+    k - stride has no T_in * stride output and is refused."""
+    g = torch.Generator().manual_seed(k)
+    c_in, c_out, t_in = 6, 4, 13
+    pad = (k - stride) // 2
+    sd = {"ups.0.weight": torch.randn((c_in, c_out, k), generator=g),
+          "ups.0.bias": torch.randn((c_out,), generator=g)}
+    if k - 2 * pad != stride:
+        with pytest.raises(ValueError, match="k - 2 \\* padding"):
+            ttail.prepare_upsample(sd, 0, stride, pad)
+        return
+    pre = ttail.prepare_upsample(sd, 0, stride, pad, dtype=torch.float64)
+    assert pre["taps"] == -(-k // stride) and pre["c_in"] == c_in and pre["channels"] == c_out
+    x = torch.randn((1, t_in, c_in), generator=g, dtype=torch.float64)
+    want = F.conv_transpose1d(x.transpose(1, 2), sd["ups.0.weight"].double(),
+                              sd["ups.0.bias"].double(), stride=stride, padding=pad)
+    w = pre["w"].view(stride, pre["taps"], c_in, c_out)
+    got = torch.empty_like(want)
+    for p in range(stride):
+        off = ttail.pre_offset(pre, p)
+        xp = F.pad(x.transpose(1, 2), (max(0, -off), pre["taps"] + max(0, off)))
+        ph = F.conv1d(xp, w[p].permute(2, 1, 0), pre["bias"])
+        got[:, :, p::stride] = ph[:, :, off + max(0, -off):][:, :, :t_in]
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
 
 
 def test_pack_layout_and_halo():
@@ -129,13 +180,74 @@ def test_plan_tiling_and_shared_memory():
                               _two_per_sm)
 
 
-def _cooperative_emulation(x: torch.Tensor, packed: dict, post_pack: dict | None) -> torch.Tensor:
+def _upsample_emulation(x: torch.Tensor, pre: dict) -> torch.Tensor:
+    """The tensor-core body's upsampling phase on the CPU: per output phase
+    p and 128 input rows, the lrelu'd window of 128 + taps - 1 input rows
+    from m0 + pre_offset(p) (zero outside [0, T_in)), the phase's taps with
+    fp32 sums, the bias, one rounding, stored at rows m * stride + p."""
+    dtype, (b, t_in, c_in) = x.dtype, x.shape
+    u, taps, c = pre["stride"], pre["taps"], pre["channels"]
+    w = pre["w"].view(u, taps, c_in, c)
+    out = torch.full((b, t_in * u, c), float("nan"), dtype=dtype)
+    for p in range(u):
+        off = ttail.pre_offset(pre, p)
+        for m0 in range(0, t_in, ttail.TC_BM):
+            rows = torch.arange(m0 + off, m0 + ttail.TC_BM + taps - 1 + off)
+            inside = (rows >= 0) & (rows < t_in)
+            win = torch.zeros((b, rows.numel(), c_in), dtype=dtype)
+            win[:, inside] = x[:, rows[inside]]
+            acc = F.conv1d(leaky_relu(win, LRELU_SLOPE).transpose(1, 2).float(),
+                           w[p].float().permute(2, 1, 0))
+            v = (acc + pre["bias"].float()[:, None]).to(dtype).transpose(1, 2)[:, : t_in - m0]
+            out[:, (m0 + torch.arange(v.shape[1])) * u + p] = v
+    return out
+
+
+@pytest.mark.parametrize("name,stage", [("v1", 2), ("v1", 3), ("v2", 2), ("v2", 3)])
+def test_plan_with_a_folded_upsampler(name, stage):
+    """With ``pre`` the bf16 body's window also holds 128 + taps - 1 rows of
+    C_in = 2C (and the ring its chunks), the busiest phase may be the
+    upsampling one (stride x input tiles), and one more plane (or, for the
+    SIMT body, one more window a block) holds the upsampled x."""
+    h = tconfig.get_config(name)
+    packed = _stage_meta(name, stage)
+    c = packed["channels"]
+    pre = {"c_in": 2 * c, "channels": c, "stride": 2, "taps": 2, "padding": 1}
+    max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
+    bn, cpad, kc = ttail.tc_tiling(c)
+    _, cpad_in, kc_in = ttail.tc_tiling(2 * c)
+    window = max((128 + max_ext) * (cpad + 8), (128 + 1) * (cpad_in + 8))
+    assert ttail.tc_smem(c, max_ext, pre) == (-(-window // 8) * 8 * 2
+                                              + 3 * max(kc, kc_in) * (bn + 8) * 2)
+    assert ttail.tc_smem(c, max_ext, pre) >= ttail.tc_smem(c, max_ext)
+    post = stage == len(h["upsample_rates"]) - 1
+    for batch, t_in in ((1, 256 * 64 << (stage - 2)), (3, 259)):  # a 256-frame request, ragged
+        seq = 2 * t_in
+        plan = ttail.plan_tail_stage(packed, batch, seq, torch.bfloat16, post, 132, _two_per_sm,
+                                     pre=pre)
+        items = max(packed["n_rb"] * batch * -(-seq // 128),
+                    2 * batch * -(-t_in // 128)) * -(-c // bn)
+        assert plan["items"] == items and plan["smem"] == ttail.tc_smem(c, max_ext, pre)
+        assert plan["scratch"] == (2 * packed["n_rb"] + post + 1) * batch * seq * c
+        f32 = ttail.plan_tail_stage(packed, batch, seq, torch.float32, post, 132, _two_per_sm,
+                                    pre=pre)
+        work = f32["tile"] + 2 * (packed["halo"] + (3 if post else 0))
+        assert f32["scratch"] == f32["grid"] * 3 * work * c
+    with pytest.raises(ValueError, match="pre_pack gives"):
+        ttail.plan_tail_stage(packed, 1, 257, torch.bfloat16, False, 132, _two_per_sm, pre=pre)
+
+
+def _cooperative_emulation(x: torch.Tensor, packed: dict, post_pack: dict | None,
+                           pre_pack: dict | None = None) -> torch.Tensor:
     """The tensor-core body's schedule on the CPU, in the kernel's order:
-    phase j runs conv j of every resblock (widest first) in 128-row tiles,
-    each tile's operand the lrelu'd, masked window of 128 + (k-1)*d rows
-    of its source; sources, residuals and outputs by the kernel's buffer
-    codes (0 = x, 1 and 2 = the resblock's planes; a pair's last conv
-    updates h in place); then the fp32 mean and the post conv."""
+    with ``pre_pack`` first the upsampling phase into the plane that then
+    stands for x; phase j runs conv j of every resblock (widest first) in
+    128-row tiles, each tile's operand the lrelu'd, masked window of 128 +
+    (k-1)*d rows of its source; sources, residuals and outputs by the
+    kernel's buffer codes (0 = x, 1 and 2 = the resblock's planes; a pair's
+    last conv updates h in place); then the fp32 mean and the post conv."""
+    if pre_pack is not None:
+        x = _upsample_emulation(x, pre_pack)
     dtype, (b, t, c) = x.dtype, x.shape
     per, ps, n_rb = packed["convs_per_rb"], packed["pair_size"], packed["n_rb"]
     planes = [{0: x} for _ in range(n_rb)]
@@ -177,20 +289,36 @@ def _cooperative_emulation(x: torch.Tensor, packed: dict, post_pack: dict | None
     return torch.tanh(wav).transpose(1, 2).contiguous()
 
 
+def _hold_emulation(resblock: str, stage: int, post: bool, seq: int, pre: bool) -> None:
+    h = fold_up_config(resblock) if pre else small_config(resblock)
+    _, sd = folded_pair(h)
+    ch = h["upsample_initial_channel"] // (2 ** (stage + 1))
+    u, k = h["upsample_rates"][stage], h["upsample_kernel_sizes"][stage]
+    pre_pack = (ttail.prepare_upsample(sd, stage, u, (k - u) // 2, dtype=torch.bfloat16)
+                if pre else None)
+    x = np.random.default_rng(stage).standard_normal((2, seq, 2 * ch if pre else ch)) * 0.5
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    packed = ttail.pack_generator_tail(h, sd, stage, dtype=torch.bfloat16)
+    post_pack = ttail.prepare_post(sd, dtype=torch.bfloat16) if post else None
+    want = ttail.fused_tail_stage_reference(x, packed, post_pack, pre_pack)
+    got = _cooperative_emulation(x, packed, post_pack, pre_pack)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("resblock,stage,post,seq", [("1", 0, False, 300), ("1", 1, True, 259),
                                                      ("2", 1, True, 130)])
 def test_cooperative_schedule_emulation_equals_the_plain_version(resblock, stage, post, seq):
     """The bf16 body's tiling, masks and buffer rotation (ResBlock1 pairs
     updating h in place, ResBlock2's single convs) give exactly the plain
     version's values, in bf16, ragged last tile included."""
-    h = small_config(resblock)
-    _, sd = folded_pair(h)
-    ch = h["upsample_initial_channel"] // (2 ** (stage + 1))
-    x = torch.from_numpy(np.random.default_rng(stage).standard_normal((2, seq, ch)) * 0.5)
-    x = x.to(torch.bfloat16)
-    packed = ttail.pack_generator_tail(h, sd, stage, dtype=torch.bfloat16)
-    post_pack = ttail.prepare_post(sd, dtype=torch.bfloat16) if post else None
-    want = ttail.fused_tail_stage_reference(x, packed, post_pack)
-    got = _cooperative_emulation(x, packed, post_pack)
-    assert got.dtype == want.dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0)
+    _hold_emulation(resblock, stage, post, seq, pre=False)
+
+
+@pytest.mark.parametrize("resblock,post,t_in", [("1", True, 261), ("2", False, 130)])
+def test_cooperative_schedule_with_the_pre_phase_equals_the_plain_version(resblock, post, t_in):
+    """With a folded stride-2 upsampler the upsampling phase (per-phase
+    128-row input tiles, strided stores, edge masks) runs first and its
+    plane stands for x: still exactly the plain version's values, ragged
+    last tile included."""
+    _hold_emulation(resblock, 1, post, t_in, pre=True)

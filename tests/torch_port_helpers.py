@@ -26,6 +26,14 @@ def small_config(resblock: str = "1") -> AttrDict:
     return AttrDict(h)
 
 
+def fold_up_config(resblock: str = "1") -> AttrDict:
+    """:func:`small_config` with a stride-2 last stage (8 channels from 16),
+    the stage the JAX ``make_fast_vocoder(fold_up=True)`` folds."""
+    h = small_config(resblock)
+    h.update(upsample_rates=[4, 2], upsample_kernel_sizes=[8, 4])
+    return h
+
+
 def random_mel(batch: int, frames: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((batch, 80, frames)) * 2.0 - 5.0).astype(np.float32)
