@@ -68,7 +68,10 @@ into the git-ignored ``build/kernels``), then:
    within STEP_GRAD_TOL and updated parameters group by group within
    STEP_UPDATE_TOL, beside the CPU step's own floor (its conv outputs
    jittered by JITTER); prints ms per step and the conv-stack kernels' ms
-   per step;
+   per step; then (6b) TRAIN_STEPS steps in bench.py's bf16 training
+   precision (``disc_compute_dtype`` and ``gen_compute_dtype``
+   'bfloat16'): finite metrics, every group moving, the derived launches
+   per step, ms per step;
 7. runs ``python -m hifigan_tpu_torch.cli.train`` on synthetic wavs for
    two steps that write ``g_*``/``do_*``, then again, resuming from them;
 8. holds the stream-graph kernels (``fused_stream_graph``: forward, dx,
@@ -101,8 +104,9 @@ into the git-ignored ``build/kernels``), then:
    distinct conv call of ``configs/distill.json`` at its step's shapes (the
    generator and classifiers, and the discriminator's members interpreted),
    fp32 (TF32 off) within FP32_TOL and bf16 within BF16_REL_TOL of the plain
-   tensor's peak, dx over the kernel's own saved output; prints per-layer
-   times of kernel, plain version and cuDNN, and the bound;
+   tensor's peak, dx over the kernel's own saved output; prints each call's
+   plan, per-layer times of kernel, plain version and cuDNN, TFLOP/s and the
+   bound;
 11. trains V1 as in phase 6 with ``msd_conv_impl='pallas'`` (every MSD conv
    through the per-layer kernels), the launches per step against the
    derived count (``msd_launches_per_step``), step 1 against
@@ -170,6 +174,12 @@ SERVE_REPS = {1: 21, 16: 9}  # timed requests of each serving path, in turn
 STREAM_CHUNK = 32  # mel frames a streaming step
 STREAM_FRAMES = 320  # the streamed mel
 H100_BF16_FLOPS, H100_FP32_FLOPS, H100_BYTES_PER_S = 989e12, 67e12, 3.35e12
+# fp32 operations on the tensor cores as 3xTF32 (three TF32 products a
+# multiply-add, the fp32-class precision the kernels keep): the rate that
+# bounds the fp32 conv kernels (B1's fp32 body, B2, B5). H100_FP32_FLOPS,
+# the CUDA cores' rate, still bounds B3 and B4, which use no tensor cores.
+H100_TF32_FLOPS = 495e12
+FP32_MMA_FLOPS = H100_TF32_FLOPS / 3
 STACK_BATCHES = (2, 16)
 SEGMENT = 8192
 TRAIN_STEPS = 5
@@ -327,7 +337,7 @@ def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                     l_ms = time_ms(lambda: library_mrf(xc, lib_convs, packed["n_rb"],
                                                        packed["pair_size"], lib_post), reps)
                 ops_n, bytes_n = stage_cost(packed, batch, xs.shape[1], esize, post)
-                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
                 bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
                 print(f"{name} stage {i} C={packed['channels']} T={xs.shape[1]} B={batch} "
                       f"{str(dtype)[6:]}{' +post' if post else ''} [{plan['body']}, "
@@ -345,7 +355,7 @@ def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                 r["ops"] += ops_n
                 r["bytes"] += bytes_n
     for dtype, rows in per_dtype.items():
-        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
         for r in rows.values():
             r["bound_ms"] = max(r["ops"] / rate, r["bytes"] / H100_BYTES_PER_S) * 1e3
     per_batch = per_dtype.get(torch.bfloat16)
@@ -445,7 +455,7 @@ def pre_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                                                                            pre), reps)
                     l_ms = time_ms(lambda: lib_chain(xc), reps)
                 ops_n, bytes_n = stage_cost(packed, batch, t, esize, post, pre)
-                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+                peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
                 bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
                 print(f"{tag} C={c} from {pre['c_in']} [{plan['body']}, {plan['schedule']}, grid "
                       f"{plan['grid']}, {plan['items']} items]: max_abs_err {err:.3e} (tol "
@@ -606,6 +616,36 @@ def stack_cost(specs, x: torch.Tensor) -> tuple[int, int, int, int]:
     return flop, x_bytes + wts + act, 2 * act + wts + x_bytes, x_bytes + 2 * act + wts
 
 
+def plan_text(shape, dtype, passes) -> str:
+    """How the conv core runs each pass of one conv: SIMT lanes, or the
+    tensor-core tile, dW's channel group and splits, shared memory."""
+    from hifigan_tpu_torch.ops.conv_stack import plan_conv
+
+    parts = []
+    for p in passes:
+        pl = plan_conv(shape, dtype, p)
+        if pl["body"] == "simt":
+            parts.append(f"{p} simt x{pl['lanes']}")
+        else:
+            extra = f" kc {pl['kc']} splits {pl['splits']}" if p == "dw" else ""
+            parts.append(f"{p} mma {pl['bm']}x{pl['bn']}{extra} {pl['smem']} B")
+    return ", ".join(parts)
+
+
+def stack_shapes(specs, x: torch.Tensor) -> list:
+    """The conv core's view of each layer of a stack over input x."""
+    from hifigan_tpu_torch.ops.conv_stack import ConvShape, out_len
+
+    n, t, c = x.shape
+    shapes = []
+    for sp in specs:
+        t_out = out_len(t, sp)
+        shapes.append(ConvShape(n, t, c, t_out, sp.c_out, sp.kernel, sp.stride, 1, sp.groups,
+                                sp.pad_l))
+        t, c = t_out, sp.c_out
+    return shapes
+
+
 def cudnn_chain(xc: torch.Tensor, specs, ws, bs):
     """The stack conv by conv in cuDNN, (N, C, T) layout: a yardstick only."""
     h, outs = xc, []
@@ -651,6 +691,9 @@ def stack_phase(msd, dev) -> dict:
                     errs[dtype][kind] = max(errs[dtype][kind], err)
                     return err, peak
 
+                for l, shape in enumerate(stack_shapes(specs, x0)):
+                    print(f"conv stack {tag} layer {l + 1} plan: "
+                          f"{plan_text(shape, dtype, ('fwd', 'dx', 'dw'))}")
                 x = x0.clone().requires_grad_()
                 kk = [k.clone().requires_grad_() for k in ks]
                 bk = [b.clone().requires_grad_() for b in bs]
@@ -676,6 +719,12 @@ def stack_phase(msd, dev) -> dict:
                     got = torch.autograd.grad(outs, [x, *kk, *bk], [cot[l] for l in live],
                                               retain_graph=True)
                     torch.cuda.synchronize()
+                    if wg:  # a second backward gives the same bits: no float atomics
+                        again = torch.autograd.grad(outs, [x, *kk, *bk],
+                                                    [cot[l] for l in live], retain_graph=True)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                              f"{tag} {case}: two backward runs differ")
                     dx, dks, dbs = cs.fused_conv_stack_backward_reference(
                         x0, ks, saved, cot, specs, weight_grads=wg)
                     held(f"{case} dx", got[0], dx, "bwd_dx")
@@ -689,7 +738,8 @@ def stack_phase(msd, dev) -> dict:
                               f"{tag}: weight_grads=False gave dW != 0")
                 print(f"conv stack {tag}: fwd max_abs_err {fwd_err:.3e} "
                       f"(cudnn chain {lib_err:.3e}); "
-                      f"dx/dW/db held for every fmap, logits only, weight_grads=False")
+                      f"dx/dW/db held for every fmap, logits only, weight_grads=False; two "
+                      f"backward runs bit-identical")
                 if n == max(STACK_BATCHES):
                     per_scale.append(time_stack(cs, x0, ks, bs, specs, dys, dtype, scale))
                 del x, kk, bk, ys, saved, dys
@@ -727,7 +777,7 @@ def time_stack(cs, x0, ks, bs, specs, dys, dtype, scale) -> dict:
     outs_dx = cudnn_chain(xc, specs, [w.detach() for w in ws], [b.detach() for b in lb])
     l_dx = time_ms(lambda: torch.autograd.grad(outs_dx, [xc], dys_c, retain_graph=True), reps)
     flop, b_fwd, b_dx, b_dw = stack_cost(specs, x0)
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
     row = {"scale": scale, "T": x0.shape[1], "flop": flop, "bytes": {"fwd": b_fwd, "bwd_dx": b_dx,
                                                                       "bwd_dw": b_dw},
            "ms": {"fwd": k_fwd, "bwd_dx": k_dx, "bwd_dw": k_bwd - k_dx},
@@ -966,6 +1016,53 @@ def train_phase(h, dev, ref: dict, msd_impl: str = "auto") -> dict:
           f"{TRAIN_STEPS}: {json.dumps(history[-1])}")
     return {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel,
             "update": upd, "update_floor": floor}
+
+
+def train_bf16_phase(h, dev) -> dict:
+    """Phase 6b: TRAIN_STEPS V1 train steps at full size in bench.py's
+    training precision (``disc_compute_dtype`` and ``gen_compute_dtype``
+    'bfloat16', bench.py:169-174; parameters, losses and optimizer fp32)
+    through the conv-stack kernels, the counts set to 0 just before and
+    read just after (and per step): finite metrics, every parameter group
+    moves, the launches per step equal the derived count; prints ms per
+    step."""
+    from hifigan_tpu_torch.config import AttrDict
+    from hifigan_tpu_torch.ops import conv_stack as cs
+    from hifigan_tpu_torch.train.vocoder import create_train_state, make_train_step
+
+    h = AttrDict(h, msd_conv_impl="auto", disc_compute_dtype="bfloat16",
+                 gen_compute_dtype="bfloat16")
+    per_step = {k: v * h.get("msd_num_scales", 3) * 7 for k, v in PASSES_PER_STEP.items()}
+    step_fn = make_train_step(h)
+    batches = [{"audio": synthetic_audio(h["batch_size"], h["segment_size"], h["sampling_rate"],
+                                         SEED + 10 + i)} for i in range(TRAIN_STEPS)]
+    state = create_train_state(h, seed=SEED, device=dev)
+    before = {g: [p.detach().clone() for p in getattr(state, g).parameters()] for g in V1_GROUPS}
+    step_ms, launches_per_step, history = [], [], []
+    cs.reset_launches()
+    for batch in batches:
+        counts = cs.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches_per_step.append({k: v - counts[k] for k, v in cs.launches().items()})
+        history.append({k: v.item() for k, v in metrics.items()})
+    launches = cs.launches()
+    for i, (m, n) in enumerate(zip(history, launches_per_step)):
+        check(all(np.isfinite(v) for v in m.values()), f"bf16 step {i + 1}: non-finite {m}")
+        check(n == per_step, f"bf16 step {i + 1}: conv-stack launches {n}, derived {per_step}")
+    for g, params in before.items():
+        moved = sum(not torch.equal(a, b) for a, b in zip(params, getattr(state, g).parameters()))
+        check(moved == len(params), f"bf16 {g}: {len(params) - moved} parameters did not move")
+    ms = float(np.median(step_ms[2:]))
+    print(f"train V1 bf16 (disc_compute_dtype, gen_compute_dtype 'bfloat16') "
+          f"B={h['batch_size']}x{h['segment_size']}: step ms {[round(t, 3) for t in step_ms]}, "
+          f"median of steps 3-{TRAIN_STEPS}: {ms:.3f} ms; conv-stack launches per step "
+          f"{per_step}; metrics step 1 {json.dumps(history[0])}, step {TRAIN_STEPS} "
+          f"{json.dumps(history[-1])}")
+    return {"step_ms": ms, "launches": launches, "per_step": per_step}
 
 
 def cli_train_phase(h) -> None:
@@ -1613,8 +1710,9 @@ def library_conv(xc, wc, b, kw) -> torch.Tensor:
 def held_conv(msd_conv, tag: str, x, kern, bias, kw, tol_rel: float, gen, errs: dict,
               times: bool = False) -> dict | None:
     """The B5 forward and dx against their plain versions on one call's
-    operands (dx over the kernel's own saved output); with ``times``, the
-    CUDA-event times of kernel, plain version and library call."""
+    operands (dx over the kernel's own saved output), printing the call's
+    plan; with ``times``, the CUDA-event times of kernel, plain version and
+    library call."""
     def held(what, got, want, kind):
         err = (got.float() - want.float()).abs().max().item()
         peak = want.float().abs().max().item()
@@ -1636,6 +1734,10 @@ def held_conv(msd_conv, tag: str, x, kern, bias, kw, tol_rel: float, gen, errs: 
     want, _, _ = msd_conv.msd_conv1d_lrelu_backward_reference(x, kern, yk.detach(), dy,
                                                               weight_grads=False, **kw)
     held("dx", dx, want, "bwd_dx")
+    g = msd_conv._geom(kw.get("stride", 1), kw.get("padding", 0), kw.get("dilation", 1),
+                       kw.get("groups", 1), kw.get("slope", 1.0))
+    shape = msd_conv.conv_shape(x.shape, y.shape, kern.shape[0], g)
+    print(f"{tag}: forward and dx held; plan {plan_text(shape, x.dtype, ('fwd', 'dx'))}")
     if not times:
         return None
     reps = 10
@@ -1695,9 +1797,11 @@ def msd_conv_phase(msd, distill_cfg: dict, dev) -> dict:
                               f"plain fwd {row['plain_ms']['fwd']:.4f} dx {row['plain_ms']['bwd_dx']:.4f} ms, "
                               f"cudnn fwd {row['library_ms']['fwd']:.4f} dx "
                               f"{row['library_ms']['bwd_dx']:.4f} ms, bound "
-                              f"{bound_ms(row['cost']['flop'], row['cost']['fwd'], H100_FP32_FLOPS)[0]:.4f} ms "
+                              f"{bound_ms(row['cost']['flop'], row['cost']['fwd'], FP32_MMA_FLOPS)[0]:.4f} ms "
                               f"({row['cost']['flop'] / 1e9:.2f} GFLOP; fwd "
-                              f"{row['cost']['flop'] / max(row['ms']['fwd'], 1e-6) / 1e9:.2f} TFLOP/s)")
+                              f"{row['cost']['flop'] / max(row['ms']['fwd'], 1e-6) / 1e9:.2f}, dx "
+                              f"{row['cost']['flop'] / max(row['ms']['bwd_dx'], 1e-6) / 1e9:.2f} "
+                              "TFLOP/s)")
                     with torch.no_grad():
                         h = msd_conv.msd_conv1d_lrelu(h, kern, bias, **kw)
         print(f"msd conv {str(dtype)[6:]}: every V1 MSD layer at three scales, N={STACK_BATCHES}, "
@@ -1869,7 +1973,7 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
         n = [msd_passes(r["layer"])[kind] for r in rows]
         flop = sum(c * r["cost"]["flop"] for c, r in zip(n, rows))
         nbytes = sum(c * r["cost"][kind] for c, r in zip(n, rows))
-        bnd, by = bound_ms(flop, nbytes, H100_FP32_FLOPS)
+        bnd, by = bound_ms(flop, nbytes, FP32_MMA_FLOPS)
         entry = {
             "name": f"msd_conv1d_lrelu.{kind}",
             "route": "cuda",
@@ -1883,11 +1987,15 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
         }
         for key in ("ms", "plain_ms", "library_ms"):
             entry[key] = sum(c * r[key][kind] for c, r in zip(n, rows))
-        entry.update(bound_ms=bnd, bound_by=by, per=(
+        entry.update(bound_ms=bnd, bound_by=by, redesigned=(
+            "the conv stack's implicit-GEMM core (csrc/conv_core.cuh) with a dilation: mma.sync "
+            "tensor cores, 3xTF32 in fp32 and bf16 mma in bf16, dz formed once before dx; one "
+            "input or output channel on the SIMT path"), per=(
             f"launches: the main path's runs of {TRAIN_STEPS} V1 train steps with "
             f"msd_conv_impl='pallas' and {DISTILL_STEPS} distill steps with conv_impl='pallas'; "
             "times and bound: one V1 train step (B=16, 8192 samples, fp32; 4 forward passes of "
-            "each MSD conv, 3 dx passes, 1 for conv_0), from CUDA-event times of one pass of "
+            "each MSD conv, 3 dx passes, 1 for conv_0; bound: operations at the 3xTF32 rate), "
+            "from CUDA-event times of one pass of "
             "each conv at each scale (library: cuDNN F.conv1d + F.leaky_relu, its autograd dx); "
             "max_abs_err: every V1 MSD layer at N=2 and N=16 and every distinct distill conv "
             "call (function :191)"))
@@ -2094,6 +2202,9 @@ def main() -> int:
     v1_ref = v1_step_reference(h)
     train = train_phase(h, dev, v1_ref)
     torch.cuda.empty_cache()
+    # ... and in bench.py's bf16 training precision
+    train_bf16 = train_bf16_phase(h, dev)
+    torch.cuda.empty_cache()
 
     # 7. the training CLI end to end
     cli_train_phase(h)
@@ -2191,7 +2302,7 @@ def main() -> int:
     stack_ms = 0.0
     for kind, line in (("fwd", 374), ("bwd_dx", 596), ("bwd_dw", 596)):
         n = PASSES_PER_STEP[kind]
-        ops_ms = sum(n * r["flop"] for r in rows) / H100_FP32_FLOPS * 1e3
+        ops_ms = sum(n * r["flop"] for r in rows) / FP32_MMA_FLOPS * 1e3
         bytes_ms = sum(n * r["bytes"][kind] for r in rows) / H100_BYTES_PER_S * 1e3
         entry = {
             "name": f"fused_conv_stack.{kind}",
@@ -2207,9 +2318,20 @@ def main() -> int:
             entry[key] = sum(n * r[key][kind] for r in rows)
         entry["bound_ms"] = max(ops_ms, bytes_ms)
         entry["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        rows_bf = [r for r in stack["per_scale"] if r["dtype"] == "bfloat16"]
+        entry["bf16"] = {key: sum(n * r[key][kind] for r in rows_bf)
+                         for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        entry["launches_bf16_train"] = train_bf16["launches"][kind]
+        entry["redesigned"] = ("one implicit-GEMM core (csrc/conv_core.cuh) on mma.sync tensor "
+                               "cores, 3xTF32 in fp32 and bf16 mma in bf16: input windows staged "
+                               "once per tile for all taps, weights through a cp.async ring, dx "
+                               "per output phase, dz formed once, dW in a few splits summed in a "
+                               "fixed order; conv_post on the SIMT path")
         entry["per"] = (f"launches: the main path's run of {TRAIN_STEPS} V1 train steps; times and "
                         f"bound: one V1 train step (B=16, 8192 samples, fp32, {n} passes per MSD "
-                        "scale), from CUDA-event times of one pass at each scale; max_abs_err: "
+                        "scale; bound: operations at the 3xTF32 rate, 3 x FLOP at 495 TFLOP/s), "
+                        "from CUDA-event times of one pass at each scale; bf16: the same in "
+                        "bf16; launches_bf16_train: the bf16 training run; max_abs_err: "
                         "over the three scales at N=2 and N=16 (function :973)")
         stack_ms += entry["ms"]
         kernels.append(entry)
@@ -2251,7 +2373,8 @@ def main() -> int:
           f"traversal's stream-graph passes {sg_ms:.3f} ms; profiled step "
           f"{json.dumps(distill['share'])}")
     print(f"train step {train['step_ms']:.3f} ms, of which the conv-stack kernels "
-          f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times)")
+          f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times); "
+          f"bf16 train step {train_bf16['step_ms']:.3f} ms")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

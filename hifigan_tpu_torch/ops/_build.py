@@ -7,8 +7,10 @@ C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 The libraries go to ``build/kernels/`` beside the package, named by a hash
-of their source, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing is built when a module is imported.
+of their source and of every header it includes (``#include "x.cuh"``,
+followed through the headers), so an edited source or header is rebuilt
+and an unchanged one is loaded as it is. Nothing is built when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,9 +44,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc was not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and the local headers it includes, directly or through
+    another header, in the order they are first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / name.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict[str, Path]:

@@ -13,12 +13,14 @@ accumulating in fp32, adding the bias in fp32, applying
 ``max(z, 0) + slope * min(z, 0)`` in fp32 and rounding to x's dtype; it
 returns every layer's post-activation, T_out = (T + pad_l + pad_r - K)//s + 1.
 
-The CUDA path (``csrc/conv_stack.cu``) runs one launch per layer and pass,
-and its backward follows the Pallas one:
+The CUDA path (``csrc/conv_stack.cu`` on the implicit-GEMM core
+``csrc/conv_core.cuh``, shared with ``ops/msd_conv.py``) makes one entry
+call per layer and pass, and its backward follows the Pallas one:
 
 - dz = (dy_l + upstream) * where(y_l >= 0, 1, slope) in fp32, from the saved
-  post-activation; db = sum dz in fp32; dz rounded to the working dtype
-  feeds dW (rounded to the weight dtype) and dx; the upstream between
+  post-activation, formed once per element and pass; db = sum dz in fp32
+  (row-block partials summed in a fixed order); dz rounded to the working
+  dtype feeds dW (rounded to the weight dtype) and dx; the upstream between
   layers stays fp32;
 - a layer whose output gets no gradient and has nothing from above adds
   nothing; an input that needs no gradient skips layer 0's dx;
@@ -35,15 +37,20 @@ it).
   ``F.conv1d`` + bias + lrelu in fp32 with autograd.
 - :func:`fused_conv_stack` takes the plain version for a CPU tensor; for a
   CUDA tensor it launches the kernels or raises.
+- :func:`plan_conv` is the host planner of the core: the body (tensor
+  cores, or the SIMT path of the narrow edges), tile, grid, shared memory,
+  dW splits and scratch of one pass, mirroring the source's formulas.
 - ``LAUNCHES_FWD``, ``LAUNCHES_BWD_DX`` and ``LAUNCHES_BWD_DW`` count the
-  launches of the three entry points (the dW entry runs a partial-sum
-  kernel and its reduction, counted once).
+  launches of the three entry points, each counted once: the dW entry runs
+  the dz pass, the partial-sum kernel and its reduction; the dx entry the
+  dz pass (when no dW entry formed dz for it) and the dx kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -54,9 +61,6 @@ LAUNCHES_BWD_DX = 0
 LAUNCHES_BWD_DW = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# dW partial sums: aim at this many blocks per launch before splitting N*T
-_DW_TARGET_BLOCKS = 264
-_DW_MIN_ROWS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +180,234 @@ def fused_conv_stack_backward_reference(x: torch.Tensor, kernels: Sequence[torch
 
 
 # ---------------------------------------------------------------------------
+# The host planner of the conv core (csrc/conv_core.cuh), shared with
+# ops/msd_conv.py. Every size mirrors win_plan / dw_plan in the source; the
+# entry points refuse a shared-memory value other than their own.
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB)
+SM_COUNT = 132  # the H100 SXM's; the wrappers pass the card's own
+DW_ROWS = 64  # dW: reduction rows (n, t) a ring stage (kDwRows in the source)
+DW_WAVES = 3  # dW blocks aimed at, in waves of SM_COUNT: its narrow layers have few tiles
+STAGES = 3
+THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvShape:
+    """One conv1d call: (n, t_in, c_in) -> (n, t_out, c_out), k taps,
+    stride s, dilation d (s or d is 1), groups, left zero padding."""
+
+    n: int
+    t_in: int
+    c_in: int
+    t_out: int
+    c_out: int
+    k: int
+    s: int = 1
+    d: int = 1
+    groups: int = 1
+    pad_l: int = 0
+
+    @property
+    def ci_g(self) -> int:
+        return self.c_in // self.groups
+
+    @property
+    def co_g(self) -> int:
+        return self.c_out // self.groups
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round8(v: int) -> int:
+    return (v + 7) // 8 * 8
+
+
+def _pad816(v: int) -> int:
+    """v (a multiple of 8) padded to 8 mod 16 elements."""
+    return v + 8 if v % 16 == 0 else v + 16
+
+
+def _pow2ceil(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def _extra_rows(k: int, s: int, d: int) -> int:
+    return _cdiv(max((k - 1) * d + 1 - s, 0), s) * s
+
+
+def precision(dtype: torch.dtype) -> dict:
+    """The core's per-dtype constants: mma k-step, weight-ring rows per
+    stage, widest channel chunk, element size."""
+    if dtype == torch.float32:
+        return {"kstep": 8, "wk": 32, "kcmax": 64, "esize": 4}
+    return {"kstep": 16, "wk": 64, "kcmax": 128, "esize": 2}
+
+
+def kc_ok(g: ConvShape, dx: bool, dtype: torch.dtype, kc: int) -> bool:
+    """A reduction channel chunk the forward or dx takes (``kc_ok`` in the
+    source): a multiple of 8 up to the widest chunk, and with several chunks
+    each spans two ring stages or more, for every dx phase too."""
+    pr_ = precision(dtype)
+    ch = g.co_g if dx else g.ci_g
+    taps = (g.k if g.s == 1 else 1) if dx else g.k
+    return (kc >= 8 and kc % 8 == 0 and kc <= pr_["kcmax"] and kc <= _round8(ch)
+            and (_cdiv(ch, kc) == 1 or taps * kc > pr_["wk"]))
+
+
+def win_plan(g: ConvShape, dx: bool, dtype: torch.dtype, bm: int, bn: int,
+             kc: int | None = None) -> dict:
+    """The forward (or dx) tile's window and shared memory (``win_plan`` in
+    the source) with reduction channel chunks of ``kc`` (default: the
+    widest); dx sizes for its widest phase."""
+    pr_ = precision(dtype)
+    if not dx:
+        S, ch, ntaps, E, rows = g.s, g.ci_g, g.k, _extra_rows(g.k, g.s, g.d), g.t_out
+    else:
+        ntaps = _cdiv(g.k, g.s)
+        S, ch, E, rows = 1, g.co_g, (ntaps - 1) * g.d, max(1, g.t_in // g.s)
+    kc = kc or min(_round8(ch), pr_["kcmax"])
+    chunks = _cdiv(ch, kc)
+    nb = min(g.n - 1, _cdiv(bm - 1, rows))
+    wr = (bm - 1) * S + nb * E + (ntaps - 1) * g.d + 1
+    npl = 1 if S == 1 else min(S, ntaps)
+    pr = _cdiv(wr, S)
+    p = kc + 4 if dtype == torch.float32 else _pad816(kc)
+    win = _round8(npl * pr * p)
+    wb = 1 if chunks == 1 else 2
+    groups8 = ntaps * kc // 8
+    smem = _round8(groups8 + 1) * 4 + (wb * win + STAGES * pr_["wk"] * _pad816(bn)) * pr_["esize"]
+    return {"S": S, "E": E, "ntaps": ntaps, "rows": rows, "ch": ch, "kc": kc, "chunks": chunks,
+            "nb": nb, "wr": wr, "npl": npl, "pr": pr, "p": p, "win": win, "wb": wb,
+            "groups8": groups8, "smem": smem}
+
+
+def dw_kc(g: ConvShape) -> int:
+    """dW's channels of a tap in a tile row group: a quarter of the group's
+    width rounded up to a power of two, 8 to 64. A tile's 128 rows then
+    take more taps of fewer channels, and the window a stage stages serves
+    more of them (measured fastest at V1 MSD layers 1-5; even at layer 6)."""
+    return max(8, min(_pow2ceil(_round8(g.ci_g)), 256) // 4)
+
+
+def dw_plan(g: ConvShape, dtype: torch.dtype, bn: int, kc: int) -> dict:
+    """The dW tile's (128 (tap, kc channels) rows x bn columns) stages and
+    shared memory (``dw_plan`` in the source)."""
+    pr_ = precision(dtype)
+    nt = 128 // kc
+    ntt, chunks = _cdiv(g.k, nt), _cdiv(g.ci_g, kc)
+    S, E, bkt = g.s, _extra_rows(g.k, g.s, g.d), DW_ROWS
+    nb = min(g.n - 1, _cdiv(bkt - 1, g.t_out))
+    taps = min(nt, g.k)
+    wr = (bkt - 1) * S + nb * E + (taps - 1) * g.d + 1
+    npl = 1 if S == 1 else min(S, taps)
+    pr = _cdiv(wr, S)
+    p = _pad816(kc)
+    win = _round8(npl * pr * p)
+    stage = win + bkt * _pad816(bn)
+    smem = STAGES * stage * pr_["esize"] + STAGES * bkt * 4
+    return {"kc": kc, "nt": nt, "ntt": ntt, "chunks": chunks, "mtiles": chunks * ntt, "S": S,
+            "E": E, "bkt": bkt, "nb": nb, "wr": wr, "npl": npl, "pr": pr, "p": p, "win": win,
+            "stage": stage, "smem": smem}
+
+
+def narrow(g: ConvShape, dtype: torch.dtype, pass_: str) -> bool:
+    """Whether a pass takes the core's SIMT path: one input or one output
+    channel per group, or a reduction shorter than one mma k-step."""
+    if g.ci_g == 1 or g.co_g == 1:
+        return True
+    kstep = precision(dtype)["kstep"]
+    if pass_ == "fwd":
+        return g.k * g.ci_g < kstep
+    if pass_ == "dx":
+        return _cdiv(g.k, g.s) * g.co_g < kstep
+    return g.n * g.t_out < kstep
+
+
+def _bn(cols: int) -> int:
+    return 16 if cols <= 16 else 32 if cols <= 32 else 64
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_conv(g: ConvShape, dtype: torch.dtype, pass_: str, sm_count: int = SM_COUNT) -> dict:
+    """How one pass ('fwd', 'dx' or 'dw') of one conv runs on the card.
+
+    Returns ``body`` ('mma': the tensor-core core, or 'simt': the narrow
+    edge), ``bm`` x ``bn`` (the tile; dW's rows are (tap, channel)),
+    ``kc`` (channels of a reduction chunk; dW: of a tap in a tile row
+    group), ``lanes`` (threads an output of the SIMT body), ``grid``,
+    ``smem`` (bytes), ``splits`` / ``split_rows`` (dW's reduction over
+    n*t_out), ``rb_rows`` / ``nrb`` (the dz pass's row blocks, db's
+    partials) and ``scratch`` (elements of the device buffers the wrapper
+    allocates).
+    """
+    if pass_ not in ("fwd", "dx", "dw"):
+        raise ValueError(f"pass must be fwd, dx or dw, got {pass_!r}")
+    rows = g.n * g.t_out
+    rb_rows = max(64, _cdiv(rows, 1024))
+    nrb = _cdiv(rows, rb_rows)
+    plan = {"body": "simt", "bm": 0, "bn": 0, "kc": 0, "smem": 0, "lanes": 1, "splits": 0,
+            "split_rows": 0, "rb_rows": rb_rows, "nrb": nrb,
+            "scratch": {"dz": rows * g.c_out, "pdb": nrb * g.c_out, "partial": 0}}
+    if narrow(g, dtype, pass_):
+        red = {"fwd": g.k * g.ci_g, "dx": g.k * g.co_g, "dw": rows}[pass_]
+        outs = {"fwd": rows * g.c_out, "dx": g.n * g.t_in * g.c_in,
+                "dw": g.k * g.ci_g * g.c_out}[pass_]
+        plan["lanes"] = 32 if red >= 64 else 1
+        plan["grid"] = (_cdiv(outs * plan["lanes"], THREADS), 1, 1)
+        return plan
+    plan["body"] = "mma"
+    if pass_ == "dw":
+        bn, kc = _bn(g.co_g), dw_kc(g)
+        dp = dw_plan(g, dtype, bn, kc)
+        while dp["smem"] > SMEM_LIMIT and kc > 8:  # long dilated windows: fewer channels a tile
+            kc //= 2
+            dp = dw_plan(g, dtype, bn, kc)
+        tiles = dp["mtiles"] * _cdiv(g.co_g, bn) * g.groups
+        # splits of n * t_out up to ~DW_WAVES waves of blocks (each split >= 4 stages)
+        splits = max(1, min(DW_WAVES * sm_count // tiles, rows // (4 * dp["bkt"])))
+        split_rows = _cdiv(_cdiv(rows, splits), dp["bkt"]) * dp["bkt"]
+        splits = _cdiv(rows, split_rows)
+        plan.update(bm=128, bn=bn, kc=kc, smem=dp["smem"], splits=splits, split_rows=split_rows,
+                    grid=(dp["mtiles"], _cdiv(g.co_g, bn), g.groups * splits))
+        plan["scratch"]["partial"] = splits * g.k * g.ci_g * g.c_out
+        smem, z = dp["smem"], g.groups * splits
+    else:
+        dx = pass_ == "dx"
+        bn = _bn(g.ci_g if dx else g.co_g)
+        m_rows = g.n * _cdiv(g.t_in, g.s) if dx else rows
+        cols = g.ci_g if dx else g.co_g
+        z = g.groups * g.s if dx else g.groups
+        # 128-row tiles, the widest column tile and channel chunk (measured
+        # fastest at every V1 MSD layer and scale); tall (dilated or strided)
+        # windows past the card's shared memory take narrower chunks, then 64 rows
+        bm = 128
+        wp = win_plan(g, dx, dtype, bm, bn)
+        kc = wp["kc"]
+        while wp["smem"] > SMEM_LIMIT and kc > 8 and kc_ok(g, dx, dtype, _round8(kc // 2)):
+            kc = _round8(kc // 2)
+            wp = win_plan(g, dx, dtype, bm, bn, kc)
+        if wp["smem"] > SMEM_LIMIT and bn >= 32:
+            bm = 64
+            wp = win_plan(g, dx, dtype, bm, bn, kc)
+        smem = wp["smem"]
+        plan.update(bm=bm, bn=bn, kc=kc, smem=smem,
+                    grid=(_cdiv(m_rows, bm), _cdiv(cols, bn), z))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{pass_} of {g} needs {smem} bytes of shared memory, more than "
+                         f"{SMEM_LIMIT}")
+    if z > 65535:
+        raise ValueError(f"{pass_} of {g}: grid z {z} is more than 65535")
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # CUDA path
 # ---------------------------------------------------------------------------
 
@@ -191,23 +423,43 @@ def _kernels():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         geom = [ci] * 9 + [cf]
         fwd, dx, dw = lib.hifigan_conv_fwd, lib.hifigan_conv_dx, lib.hifigan_conv_dw
-        fwd.argtypes = [ci] + [vp] * 4 + geom + [vp]
-        dx.argtypes = [ci] + [vp] * 5 + geom + [vp]
-        dw.argtypes = [ci] + [vp] * 8 + geom + [ci, ci, vp]
+        fwd.argtypes = [ci] + [vp] * 4 + geom + [ci] * 6 + [vp]
+        dx.argtypes = [ci] + [vp] * 6 + [ci, vp] + geom + [ci] * 7 + [vp]
+        dw.argtypes = [ci] + [vp] * 6 + [ci] + [vp] * 3 + geom + [ci] * 7 + [vp]
         for fn in (fwd, dx, dw):
             fn.restype = ci
         _KERNELS = (fwd, dx, dw)
     return _KERNELS
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def launch_args(plan: dict) -> list:
+    """The body, tile, channel chunk, shared memory and lanes the forward
+    and dx entry points take."""
+    return [1 if plan["body"] == "mma" else 0, plan["bm"], plan["bn"], plan["kc"], plan["smem"],
+            plan["lanes"]]
+
+
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _geom(x_in: torch.Tensor, y: torch.Tensor, sp: LayerSpec) -> list:
+def _shape(x_in: torch.Tensor, t_out: int, sp: LayerSpec) -> ConvShape:
     n, t_in, c_in = x_in.shape
-    return [n, t_in, c_in, y.shape[1], sp.c_out, sp.kernel, sp.stride, sp.groups, sp.pad_l,
-            float(sp.slope)]
+    return ConvShape(n, t_in, c_in, t_out, sp.c_out, sp.kernel, sp.stride, 1, sp.groups, sp.pad_l)
+
+
+def _geom(g: ConvShape, sp: LayerSpec) -> list:
+    return [g.n, g.t_in, g.c_in, g.t_out, g.c_out, g.k, g.s, g.groups, g.pad_l, float(sp.slope)]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -219,53 +471,61 @@ def _raise_if(rc: int, what: str) -> None:
         raise RuntimeError(f"fused_conv_stack {what} kernel launch failed: cudaError {rc}")
 
 
-def _dw_splits(kdim: int, co_g: int, groups: int, rows: int) -> tuple[int, int]:
-    """(splits, rows per split) of the dW reduction over N*T_out."""
-    bn = 64 if co_g >= 64 else (32 if co_g >= 32 else 16)
-    tiles = -(-kdim // (4096 // bn)) * -(-co_g // bn) * groups
-    splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), rows // _DW_MIN_ROWS))
-    split_rows = -(-rows // (16 * splits)) * 16
-    return -(-rows // split_rows), split_rows
-
-
 def _layer_fwd(x_in, kern, bias, sp: LayerSpec, t_out: int) -> torch.Tensor:
     global LAUNCHES_FWD
     fwd, _, _ = _kernels()
-    y = torch.empty((x_in.shape[0], t_out, sp.c_out), dtype=x_in.dtype, device=x_in.device)
+    g = _shape(x_in, t_out, sp)
+    plan = plan_conv(g, x_in.dtype, "fwd", sm_count(x_in.device))
+    y = torch.empty((g.n, t_out, sp.c_out), dtype=x_in.dtype, device=x_in.device)
     rc = fwd(_DTYPE_CODE[x_in.dtype], x_in.data_ptr(), kern.data_ptr(), _ptr(bias), y.data_ptr(),
-             *_geom(x_in, y, sp), _stream(x_in))
+             *_geom(g, sp), *launch_args(plan), _stream(x_in))
     _raise_if(rc, "forward")
     LAUNCHES_FWD += 1
     return y
 
 
-def _layer_dx(x_in, y, dy, up, kern, sp: LayerSpec) -> torch.Tensor:
+def _layer_dx(x_in, y, dy, up, kern, sp: LayerSpec, dz=None) -> torch.Tensor:
+    """The layer's fp32 input cotangent; ``dz`` is the rounded cotangent the
+    dW entry formed, else the entry forms it from dy, up and y."""
     global LAUNCHES_BWD_DX
     _, dx, _ = _kernels()
+    g = _shape(x_in, y.shape[1], sp)
+    plan = plan_conv(g, y.dtype, "dx", sm_count(y.device))
+    wt = kern.permute(0, 2, 1).contiguous() if plan["body"] == "mma" else None
+    ready = dz is not None
+    if not ready:
+        dz = torch.empty(y.shape, dtype=y.dtype, device=y.device)
     da = torch.empty(x_in.shape, dtype=torch.float32, device=x_in.device)
-    rc = dx(_DTYPE_CODE[y.dtype], _ptr(dy), _ptr(up), y.data_ptr(), kern.data_ptr(),
-            da.data_ptr(), *_geom(x_in, y, sp), _stream(y))
+    rc = dx(_DTYPE_CODE[y.dtype], _ptr(dy), _ptr(up), y.data_ptr(), kern.data_ptr(), _ptr(wt),
+            dz.data_ptr(), int(ready), da.data_ptr(), *_geom(g, sp), *launch_args(plan),
+            plan["rb_rows"], _stream(y))
     _raise_if(rc, "dx")
     LAUNCHES_BWD_DX += 1
     return da
 
 
-def _layer_dw(x_in, y, dy, up, kern, sp: LayerSpec) -> tuple[torch.Tensor, torch.Tensor]:
+def _layer_dw(x_in, y, dy, up, kern, sp: LayerSpec):
+    """(dW, db, dz): dz (the rounded cotangent, working type) goes on to the
+    layer's dx."""
     global LAUNCHES_BWD_DW
     _, _, dw = _kernels()
-    k, ci_g, c_out = kern.shape
-    rows = y.shape[0] * y.shape[1]
-    splits, split_rows = _dw_splits(k * ci_g, c_out // sp.groups, sp.groups, rows)
-    partial = torch.empty((splits, k * ci_g, c_out), dtype=torch.float32, device=y.device)
-    pdb = torch.empty((splits, c_out), dtype=torch.float32, device=y.device)
+    g = _shape(x_in, y.shape[1], sp)
+    plan = plan_conv(g, y.dtype, "dw", sm_count(y.device))
+    dev = y.device
+    dz = torch.empty(y.shape, dtype=y.dtype, device=dev)
+    pdb = torch.empty((plan["nrb"], g.c_out), dtype=torch.float32, device=dev)
+    partial = (torch.empty((plan["scratch"]["partial"],), dtype=torch.float32, device=dev)
+               if plan["body"] == "mma" else None)
     dkern = torch.empty_like(kern)
-    dbias = torch.empty((c_out,), dtype=torch.float32, device=y.device)
+    dbias = torch.empty((g.c_out,), dtype=torch.float32, device=dev)
+    body, _, bn, kc, smem, lanes = launch_args(plan)
     rc = dw(_DTYPE_CODE[y.dtype], x_in.data_ptr(), _ptr(dy), _ptr(up), y.data_ptr(),
-            partial.data_ptr(), pdb.data_ptr(), dkern.data_ptr(), dbias.data_ptr(),
-            *_geom(x_in, y, sp), splits, split_rows, _stream(y))
+            dz.data_ptr(), pdb.data_ptr(), plan["rb_rows"], _ptr(partial), dkern.data_ptr(),
+            dbias.data_ptr(), *_geom(g, sp), body, bn, kc, plan["splits"], plan["split_rows"],
+            smem, lanes, _stream(y))
     _raise_if(rc, "dW")
     LAUNCHES_BWD_DW += 1
-    return dkern, dbias
+    return dkern, dbias, dz
 
 
 class _FusedConvStack(torch.autograd.Function):
@@ -305,9 +565,11 @@ class _FusedConvStack(torch.autograd.Function):
             if dy is None and up is None:
                 continue
             x_in = x if l == 0 else ys[l - 1]
+            dz = None
             if need_w:
-                dkerns[l], dbiases[l] = _layer_dw(x_in, ys[l], dy, up, kernels[l], specs[l])
-            up = _layer_dx(x_in, ys[l], dy, up, kernels[l], specs[l]) if (l or need_x) else None
+                dkerns[l], dbiases[l], dz = _layer_dw(x_in, ys[l], dy, up, kernels[l], specs[l])
+            up = (_layer_dx(x_in, ys[l], dy, up, kernels[l], specs[l], dz) if (l or need_x)
+                  else None)
         grads = []
         for i, (need, g) in enumerate(zip(need_wb, dkerns + dbiases)):
             if need and g is None:  # weight_grads=False, or no gradient reached the layer

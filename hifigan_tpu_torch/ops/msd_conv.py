@@ -19,7 +19,10 @@ The backward follows the JAX custom VJP (``msd_conv.py:136-167``): dz = dy
 * where(y >= 0, 1, slope) formed in dy's dtype from the SAVED output y;
 db = sum dz in fp32, rounded to the dtype; dW as fp32 products summed over
 (batch, time), rounded to the dtype; dx by the CUDA kernel
-(``csrc/msd_conv.cu``) in fp32, rounded to x's dtype. dW and db are PyTorch
+(``csrc/msd_conv.cu``, on the implicit-GEMM core ``csrc/conv_core.cuh``
+that the conv stack shares, planned by ``ops/conv_stack.py::plan_conv``)
+in fp32 over dz formed once by a first kernel of the same entry, rounded
+to x's dtype. dW and db are PyTorch
 ops here (the weight-gradient conv and a sum) as they are XLA einsums
 outside the Pallas call in JAX. An input that needs no gradient (the
 waveform under conv_0) skips its dx launch.
@@ -42,6 +45,8 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+
+from hifigan_tpu_torch.ops.conv_stack import ConvShape, launch_args, plan_conv, sm_count
 
 LAUNCHES_FWD = 0
 LAUNCHES_BWD_DX = 0
@@ -157,17 +162,24 @@ def _kernels():
         lib = _build.load("msd_conv")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd, dx = lib.hifigan_msd_fwd, lib.hifigan_msd_dx
+        fwd.argtypes = [ci] + [vp] * 4 + [ci] * 10 + [cf] + [ci] * 6 + [vp]
+        dx.argtypes = [ci] + [vp] * 6 + [ci] * 10 + [cf] + [ci] * 6 + [vp]
         for fn in (fwd, dx):
-            fn.argtypes = [ci] + [vp] * 4 + [ci] * 10 + [cf, vp]
             fn.restype = ci
         _KERNELS = (fwd, dx)
     return _KERNELS
 
 
-def _args(x: torch.Tensor, y: torch.Tensor, k: int, g: ConvGeom, slope: float) -> list:
-    n, t_in, c_in = x.shape
-    return [n, t_in, c_in, y.shape[1], y.shape[2], k, g.stride, g.dilation, g.groups, g.pad_l,
-            slope, torch.cuda.current_stream(x.device).cuda_stream]
+def conv_shape(x_shape, y_shape, k: int, g: ConvGeom) -> ConvShape:
+    """The planner's view of one call: (n, t_in, c_in) -> (n, t_out, c_out)."""
+    n, t_in, c_in = x_shape
+    return ConvShape(n, t_in, c_in, y_shape[1], y_shape[2], k, g.stride, g.dilation, g.groups,
+                     g.pad_l)
+
+
+def _args(s: ConvShape, slope: float, plan: dict, x: torch.Tensor) -> list:
+    return [s.n, s.t_in, s.c_in, s.t_out, s.c_out, s.k, s.s, s.d, s.groups, s.pad_l, slope,
+            *launch_args(plan), torch.cuda.current_stream(x.device).cuda_stream]
 
 
 def _launch_fwd(g: ConvGeom, x: torch.Tensor, kernel: torch.Tensor,
@@ -177,9 +189,11 @@ def _launch_fwd(g: ConvGeom, x: torch.Tensor, kernel: torch.Tensor,
     k, _, c_out = kernel.shape
     y = torch.empty((x.shape[0], out_len(x.shape[1], k, g), c_out), dtype=x.dtype,
                     device=x.device)
+    s = conv_shape(x.shape, y.shape, k, g)
+    plan = plan_conv(s, x.dtype, "fwd", sm_count(x.device))
     b32 = None if bias is None else bias.float().contiguous()
     rc = fwd(_DTYPE_CODE[x.dtype], x.data_ptr(), kernel.data_ptr(),
-             None if b32 is None else b32.data_ptr(), y.data_ptr(), *_args(x, y, k, g, g.slope))
+             None if b32 is None else b32.data_ptr(), y.data_ptr(), *_args(s, g.slope, plan, x))
     if rc != 0:
         raise RuntimeError(f"msd_conv1d_lrelu forward kernel launch failed: cudaError {rc}")
     LAUNCHES_FWD += 1
@@ -190,10 +204,14 @@ def _launch_dx(g: ConvGeom, dy: torch.Tensor, y: torch.Tensor, kernel: torch.Ten
                x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES_BWD_DX
     _, dx_fn = _kernels()
+    s = conv_shape(x.shape, y.shape, kernel.shape[0], g)
+    plan = plan_conv(s, x.dtype, "dx", sm_count(x.device))
+    wt = kernel.permute(0, 2, 1).contiguous() if plan["body"] == "mma" else None
+    dz = torch.empty_like(dy)
     dx = torch.empty_like(x)
     rc = dx_fn(_DTYPE_CODE[x.dtype], dy.data_ptr(), y.data_ptr(), kernel.data_ptr(),
-               dx.data_ptr(), *_args(x, y, kernel.shape[0], g,
-                                     _rounded_slope(g.slope, x.dtype)))
+               None if wt is None else wt.data_ptr(), dz.data_ptr(), dx.data_ptr(),
+               *_args(s, _rounded_slope(g.slope, x.dtype), plan, x))
     if rc != 0:
         raise RuntimeError(f"msd_conv1d_lrelu dx kernel launch failed: cudaError {rc}")
     LAUNCHES_BWD_DX += 1

@@ -223,6 +223,10 @@ STACKS = {
              _L(128, 5, 1, 1, 2, 2, 0.1), _L(1, 3, 1, 1, 1, 1, 1.0)], 64, 333),
     # asymmetric padding, stride 3, wide groups
     "odd": ([_L(96, 7, 3, 2, 4, 1, 0.2), _L(48, 3, 1, 3, 0, 2, 0.1)], 32, 101),
+    # the narrow edges of the conv core: one input channel, 4-channel groups
+    # (rows narrower than a 16-byte copy in bf16), one output channel; ragged T
+    "narrow": ([_L(16, 15, 1, 1, 7, 7, 0.1), _L(16, 7, 2, 4, 3, 3, 0.1),
+                _L(8, 5, 1, 2, 2, 2, 0.2), _L(1, 3, 1, 1, 1, 1, 1.0)], 1, 157),
 }
 
 
@@ -254,6 +258,45 @@ def test_conv_stack_kernels_match_plain_fp32(no_tf32, name):
         x, ks, [y.detach() for y in ys], dys, specs)
     for a, b in zip(got, [dx, *dks, *dbs]):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@requires_cuda
+@pytest.mark.parametrize("name", sorted(STACKS))
+def test_conv_stack_kernels_match_plain_bf16(no_tf32, name):
+    specs, c0, seq = STACKS[name]
+    x, ks, bs = _stack(specs, c0, seq, 3, 4)
+    x = x.bfloat16()
+    ks = [k.bfloat16() for k in ks]
+    xk = x.clone().requires_grad_()
+    kk = [k.clone().requires_grad_() for k in ks]
+    bk = [b.clone().requires_grad_() for b in bs]
+    ys = tstack.fused_conv_stack(xk, kk, bk, specs)
+    for y, r in zip(ys, tstack.fused_conv_stack_reference(x, ks, bs, specs)):
+        assert y.dtype == r.dtype == torch.bfloat16
+        assert (y.float() - r.float()).abs().max().item() <= 2.0 ** -4 * r.float().abs().max().item()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dys = [(torch.randn(y.shape, device="cuda", generator=g) * 0.1).bfloat16() for y in ys]
+    got = torch.autograd.grad(ys, [xk, *kk, *bk], dys)
+    dx, dks, dbs = tstack.fused_conv_stack_backward_reference(
+        x, ks, [y.detach() for y in ys], dys, specs)
+    for a, b in zip(got, [dx, *dks, *dbs]):
+        assert (a.float() - b.float()).abs().max().item() <= 2.0 ** -4 * b.float().abs().max().item()
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_stack_backward_is_bit_identical(no_tf32, dtype):
+    """dW's splits and db's row blocks are summed in a fixed order: no float atomics."""
+    specs, c0, seq = STACKS["msd"]
+    x, ks, bs = _stack(specs, c0, seq, 4, 6)
+    xk = x.to(dtype).requires_grad_()
+    kk = [k.to(dtype).requires_grad_() for k in ks]
+    bk = [b.clone().requires_grad_() for b in bs]
+    ys = tstack.fused_conv_stack(xk, kk, bk, specs)
+    dys = [torch.ones_like(y) * 0.01 for y in ys]
+    first = torch.autograd.grad(ys, [xk, *kk, *bk], dys, retain_graph=True)
+    second = torch.autograd.grad(ys, [xk, *kk, *bk], dys)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @requires_cuda
@@ -363,7 +406,11 @@ def test_stream_graph_wrapper_rejects_bad_inputs(card):
 # dilated classifier conv, asymmetric padding at stride 3
 MSD_CASES = [(1, 32, 15, 1, 1, 1, 7, 0.1, 300), (32, 64, 41, 2, 1, 4, 20, 0.1, 301),
              (64, 64, 41, 4, 1, 16, 20, 0.1, 150), (64, 1, 3, 1, 1, 1, 1, 1.0, 40),
-             (24, 20, 3, 1, 9, 1, 9, 0.1, 77), (12, 18, 7, 3, 1, 3, (4, 1), 0.2, 101)]
+             (24, 20, 3, 1, 9, 1, 9, 0.1, 77), (12, 18, 7, 3, 1, 3, (4, 1), 0.2, 101),
+             # 4-channel groups, dilated; a stride above the kernel; a second
+             # channel chunk with a long dilation
+             (16, 16, 5, 1, 3, 4, 6, 0.1, 123), (16, 24, 3, 5, 1, 1, 1, 0.1, 64),
+             (144, 72, 3, 1, 27, 1, 27, 0.1, 90)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
