@@ -80,9 +80,12 @@ into the git-ignored ``build/kernels``), then:
    seeded weights, 12 elements of 43,680 samples), fp32 (TF32 off) within
    FP32_TOL and bf16 within BF16_REL_TOL of the plain tensor's peak: every
    produced level, and dx, dW, db with every input and weight differentiated,
-   with ``weight_grads=False``, and with the weights alone; prints per-segment
-   and per-pass times of kernel and plain version, the interpreter's cuDNN
-   conv chain over the whole discriminator, and the bound;
+   with ``weight_grads=False``, and with the weights alone; checks that each
+   segment's pass is exactly one launch (forward, dx, dW + db) and that two
+   backward runs give the same bits (dx, dW, db) at every segment in both
+   dtypes; prints per-segment and per-pass times of kernel and plain
+   version, the interpreter's cuDNN conv chain over the whole
+   discriminator, and the bound;
 9. runs DISTILL_STEPS distillation train steps of ``configs/distill.json``
    at its shipped scale (B=3 x 43,680 samples, fp32, TF32 off, seeded
    weights and synthetic audio, the label set of ``bench.py``) with the
@@ -97,7 +100,9 @@ into the git-ignored ``build/kernels``), then:
    its gradients (Adam first moments) leaf by leaf within STEP_GRAD_TOL and
    its updated parameters group by group within STEP_UPDATE_TOL, beside the
    reference's own floor (its conv outputs jittered by JITTER); prints ms
-   per step and the stream-graph kernels' share of one profiled step;
+   per step, the host time spent in the stream-graph wrapper and its launch
+   functions in steps 3 on, and the stream-graph kernels' share of one
+   profiled step;
 10. holds the per-layer conv kernels (``msd_conv1d_lrelu``: forward and
    dx) against their plain versions at every V1 MSD layer (full width, the
    three scales' lengths of a B=16 x 8192 step, N=2 and N=16) and at every
@@ -1110,19 +1115,6 @@ def distill_models(config: dict, dev, member_impl: str = "auto", conv_impl: str 
                          member_impl=member_impl, conv_impl=conv_impl, device=dev)
 
 
-def host_ms(fn, reps: int) -> float:
-    """Host time to issue one call (no synchronisation inside the loop): near
-    the CUDA-event time of the same calls, the wrapper's host side bounds it."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    issued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return issued * 1e3 / reps
-
-
 def record_segments(disc, wav: torch.Tensor) -> list:
     """One forward of ``disc``, recording every stream-graph call's arguments."""
     from hifigan_tpu_torch.dsl import fused_member as fm
@@ -1161,32 +1153,29 @@ def segment_cost(seg, batch: int, members: int, esize: int, n_bias: int) -> dict
 
 def time_segment(sg, seg, ins, tabs, bs, m, dys) -> dict:
     """CUDA-event times of one pass of kernel and plain version over a
-    segment (mean of 5 after a warm-up); the dx pass differentiates every
-    input and no weight, the dW pass every weight and no level."""
+    segment (mean of 5 after a warm-up): the dx launch differentiating every
+    input and no weight; the dW launch over every weight, on the cotangents
+    of a full dx launch (which also sets them up: the dW time excludes it)."""
     reps = 5
     n_in, n_tab, n_ops = len(ins), len(tabs), len(seg.ops)
     with torch.no_grad():
         k_fwd = time_ms(lambda: sg.fused_stream_graph(seg, ins, tabs, bs, members=m), reps)
         p_fwd = time_ms(lambda: sg.fused_stream_graph_reference(seg, ins, tabs, bs, m), reps)
         ys = sg.fused_stream_graph(seg, ins, tabs, bs, members=m)
-        plan_dx = sg.backward_plan(seg, [True] * n_in, [False] * n_tab, [False] * n_ops,
-                                   [True] * len(ys))
-        full = sg.backward_plan(seg, [True] * n_in, [True] * n_tab,
-                                [b is not None for b in bs], [True] * len(ys))
+        plan_dx = tuple(sg.backward_plan(seg, [True] * n_in, [False] * n_tab, [False] * n_ops,
+                                         [True] * len(ys)))
+        full = tuple(sg.backward_plan(seg, [True] * n_in, [True] * n_tab,
+                                      [b is not None for b in bs], [True] * len(ys)))
         plan_dw = [None if g is None else sg.OpGrad((), g.dw, g.db) for g in full]
-        k_dx = time_ms(lambda: sg._backward_cuda(seg, plan_dx, ins, ys, dys, tabs, m), reps)
-        k_dw = time_ms(lambda: sg._backward_cuda(seg, plan_dw, ins, ys, dys, tabs, m), reps)
-        host = {"fwd": host_ms(lambda: sg.fused_stream_graph(seg, ins, tabs, bs, members=m), reps),
-                "bwd_dx": host_ms(lambda: sg._backward_cuda(seg, plan_dx, ins, ys, dys, tabs, m),
-                                  reps),
-                "bwd_dw": host_ms(lambda: sg._backward_cuda(seg, plan_dw, ins, ys, dys, tabs, m),
-                                  reps)}
+        da, _ = sg._dx_cuda(seg, full, ins, ys, dys, tabs, m)
+        k_dx = time_ms(lambda: sg._dx_cuda(seg, plan_dx, ins, ys, dys, tabs, m), reps)
+        k_dw = time_ms(lambda: sg._dw_cuda(seg, full, ins, ys, da, tabs, m), reps)
         p_dx = time_ms(lambda: sg.fused_stream_graph_backward_reference(
             seg, ins, ys, dys, tabs, m, plan=plan_dx), reps)
         p_dw = time_ms(lambda: sg.fused_stream_graph_backward_reference(
             seg, ins, ys, dys, tabs, m, plan=plan_dw), reps)
     return {"ms": {"fwd": k_fwd, "bwd_dx": k_dx, "bwd_dw": k_dw},
-            "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx, "bwd_dw": p_dw}, "host_ms": host}
+            "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx, "bwd_dw": p_dw}}
 
 
 def interp_times(disc_interp, wav: torch.Tensor) -> dict:
@@ -1244,8 +1233,11 @@ def stream_graph_phase(models, dev) -> dict:
                 errs[dtype][kind] = max(errs[dtype][kind], err)
 
             with torch.no_grad():
+                before = sg.launches()
                 ys = sg.fused_stream_graph(seg, ins_d, tabs_d, bs, members=m)
                 torch.cuda.synchronize()
+                check(one_launch(sg, before, {"fwd": 1, "bwd_dx": 0, "bwd_dw": 0}),
+                      f"{tag}: the forward took {sg.launches()} launches since {before}")
                 plain = sg.fused_stream_graph_reference(seg, ins_d, tabs_d, bs, m)
             for li, (yk, yp) in enumerate(zip(ys, plain)):
                 held(f"level {li}", yk, yp, "fwd")
@@ -1257,8 +1249,15 @@ def stream_graph_phase(models, dev) -> dict:
                 bb = [None if b is None else b.clone().requires_grad_() for b in bs]
                 outs = sg.fused_stream_graph(seg, xs, tt, bb, members=m, weight_grads=wg)
                 wrt = (xs if need_x else []) + tt + [b for b in bb if b is not None]
-                got = list(torch.autograd.grad(outs, wrt, dys))
+                before = sg.launches()
+                got = list(torch.autograd.grad(outs, wrt, dys, retain_graph=True))
                 torch.cuda.synchronize()
+                check(one_launch(sg, before, {"fwd": 0, "bwd_dx": 1, "bwd_dw": int(wg)}),
+                      f"{tag} {case}: the backward took {sg.launches()} launches since {before}")
+                if case == "all":  # the backward again: the same bits, dW and db included
+                    again = torch.autograd.grad(outs, wrt, dys)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"{tag}: two backward runs differ")
                 dxs, dws, dbs = sg.fused_stream_graph_backward_reference(
                     seg, ins_d, [o.detach() for o in outs], dys, tabs_d, m,
                     dx_mask=[need_x] * len(xs), dw_mask=[wg] * len(tt),
@@ -1282,7 +1281,7 @@ def stream_graph_phase(models, dev) -> dict:
                 rows.append(row)
                 c = row["cost"]
                 print(f"stream graph {tag} B={ins_d[0].shape[0]}: "
-                      + "; ".join(f"{k} kernel {row['ms'][k]:.3f} ms (host {row['host_ms'][k]:.3f}) "
+                      + "; ".join(f"{k} kernel {row['ms'][k]:.3f} ms "
                                   f"plain {row['plain_ms'][k]:.3f} ms "
                                   f"({c['flop'] / max(row['ms'][k], 1e-6) / 1e9:.2f} TFLOP/s)"
                                   for k in ("fwd", "bwd_dx", "bwd_dw"))
@@ -1290,7 +1289,8 @@ def stream_graph_phase(models, dev) -> dict:
                       + ", ".join(f"{k} {max(c['flop'] / H100_FP32_FLOPS, c[k] / H100_BYTES_PER_S) * 1e3:.4f} ms"
                                   for k in ("fwd", "bwd_dx", "bwd_dw")))
             print(f"stream graph {tag}: every level, and dx/dW/db for all, "
-                  f"weight_grads=False, weights only held")
+                  f"weight_grads=False, weights only held; one launch a pass; two backward "
+                  f"runs bit-identical")
     del frozen
     interp = copy.deepcopy(models.discriminator)
     for mod in interp.modules():
@@ -1306,19 +1306,19 @@ def stream_graph_phase(models, dev) -> dict:
 
 
 # Per distill step, counted from the step's structure (distill/train.py): a
-# production member is 10 segments of 59 ops (5 per all-in-one block, 3 more
-# per mel branch (2 blocks), the before conv and head 0, the after conv).
-# Forward: 4 discriminator calls, one launch per op. dx: the frozen copy on
-# generated audio reaches every op (its inputs carry gradients); the two live
-# calls skip the before conv (its input, the audio, takes no gradient) and
-# the mel branches (constant tables, gradient-free input). dW: the live
-# calls, every op with a conv of its own (not the post-residual lrelu, not
-# the mel ops).
-def distill_launches_per_step(n_blocks: int, n_mel: int) -> dict:
-    ops = 5 * n_blocks + 2 + 1 + 3 * n_mel
-    live_dx = ops - 1 - 3 * n_mel
-    live_dw = ops - n_blocks - 3 * n_mel
-    return {"fwd": 4 * ops, "bwd_dx": ops + 2 * live_dx, "bwd_dw": 2 * live_dw}
+# production member is one segment per all-in-one block (the before conv and
+# head 0 join the first, the after conv the last), each run in one launch
+# per pass. Forward: 4 discriminator calls. dx: the frozen copy on generated
+# audio and the two live calls, each reaching every segment (every segment
+# has a level that needs a cotangent). dW: the two live calls, every segment
+# having a conv with weights.
+def distill_launches_per_step(n_blocks: int) -> dict:
+    return {"fwd": 4 * n_blocks, "bwd_dx": 3 * n_blocks, "bwd_dw": 2 * n_blocks}
+
+
+def one_launch(sg, before: dict, want: dict) -> bool:
+    """The stream-graph launches since ``before`` are ``want``."""
+    return {k: v - before[k] for k, v in sg.launches().items()} == want
 
 
 def conv_op_calls(model, *inputs) -> list:
@@ -1512,6 +1512,73 @@ class jittered_convs:
         ConfigurableModule._conv_node = self.real
 
 
+class stream_graph_host_clock:
+    """Within the block, the host seconds spent in the stream-graph wrapper
+    as the fused member calls it (the forward launch and everything before
+    it, each call with the new Segment the member builds) and in its dx and
+    dW launch functions, summed by pass into ``self.s``."""
+
+    def __init__(self):
+        from hifigan_tpu_torch.dsl import fused_member as fm
+        from hifigan_tpu_torch.ops import stream_graph as sg
+
+        self.s = {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}
+        self.spots = {"fwd": (fm, "fused_stream_graph"), "bwd_dx": (sg, "_dx_cuda"),
+                      "bwd_dw": (sg, "_dw_cuda")}
+        self.real = {k: getattr(mod, name) for k, (mod, name) in self.spots.items()}
+
+    def __enter__(self):
+        for k, (mod, name) in self.spots.items():
+            def timed(*a, _fn=self.real[k], _k=k, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.s[_k] += time.perf_counter() - t0
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for k, (mod, name) in self.spots.items():
+            setattr(mod, name, self.real[k])
+
+
+def profile_step(step, state, batch, step_ms: float, what: str):
+    """One more step under ``torch.profiler``: device busy time, the
+    stream-graph and per-layer conv kernels' shares of it, device events and
+    the idle share of ``step_ms``, printed with the 15 costliest kernels.
+    Returns (state, share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in on_card)
+    sg_us = sum(e.time_range.elapsed_us() for e in on_card if "::sg_" in e.name)
+    msd_us = sum(e.time_range.elapsed_us() for e in on_card if "::msd_" in e.name)
+    share = {"step_device_ms": dev_us / 1e3, "sg_device_ms": sg_us / 1e3,
+             "msd_device_ms": msd_us / 1e3, "idle_share": 1 - dev_us / 1e3 / step_ms,
+             "device_events": len(on_card)}
+    if dev_us > 0:
+        print(f"profiled step ({what}): device busy {dev_us / 1e3:.3f} ms, of "
+              f"which the stream-graph kernels {sg_us / 1e3:.3f} ms ({100 * sg_us / dev_us:.1f}%) "
+              f"and the per-layer conv kernels {msd_us / 1e3:.3f} ms "
+              f"({100 * msd_us / dev_us:.1f}%); {len(on_card)} device events; idle "
+              f"{100 * share['idle_share']:.1f}% of the median step")
+        by_name: dict = {}
+        for e in on_card:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+            print(f"  device {us / 1e3:8.3f} ms {n:6d}x  {name[:110]}")
+    else:
+        print("profiled step: the profiler reported no device time (not measured)")
+    return state, share
+
+
 def flat_losses(tree, prefix="") -> dict:
     if isinstance(tree, dict):
         out = {}
@@ -1575,8 +1642,7 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
     torch.cuda.empty_cache()
 
     n_blocks = len(cfg["models"]["discriminator"]["layers"]) - 2
-    n_mel = sum(layer.startswith("all") for layer in cfg["models"]["discriminator"]["layers"][1:-1])
-    per_step = distill_launches_per_step(n_blocks, n_mel)
+    per_step = distill_launches_per_step(n_blocks)
     msd_per_step = (distill_msd_launches_per_step(models, seg_len) if conv_impl == "pallas"
                     else {"fwd": 0, "bwd_dx": 0})
     before = {g: [p.detach().clone() for p in opt.params] for g, opt in state.optimizers.items()}
@@ -1593,11 +1659,16 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
     step_ms, launches_per_step, msd_per_steps, history = [], [], [], []
     sg.reset_launches()
     msd_conv.reset_launches()
-    for batch in batches[:DISTILL_STEPS]:
+    clock = stream_graph_host_clock()
+    for i, batch in enumerate(batches[:DISTILL_STEPS]):
         counts, msd_counts = sg.launches(), msd_conv.launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, losses = step(state, batch)
+        if i < 2:
+            state, losses = step(state, batch)
+        else:
+            with clock:
+                state, losses = step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         launches_per_step.append({k: v - counts[k] for k, v in sg.launches().items()})
@@ -1648,39 +1719,18 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
           f"({bsz * seg_len / cfg['sampling_rate'] / ms * 1e3:.2f}x real time); stream-graph "
           f"launches per step {per_step}; per-layer conv launches per step {msd_per_step}; "
           f"total loss by step {[round(h['/total'], 4) for h in history]}")
+    host = {k: v * 1e3 / (DISTILL_STEPS - 2) for k, v in clock.s.items()}
+    print(f"stream-graph host time a step (steps 3-{DISTILL_STEPS}, the segments built anew "
+          "each call): " + ", ".join(f"{k} {v:.3f} ms over {per_step[k]} launches"
+                                     for k, v in host.items())
+          + f"; {sum(host.values()):.3f} ms of the {ms:.3f} ms step")
     out = {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel[worst],
+           "sg_host_ms": host,
            "msd_launches": msd_launches, "msd_per_step": msd_per_step, "update": upd,
            "update_floor": floor}
 
-    # one more step under the profiler: the kernels' share of device time
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batches[DISTILL_STEPS])
-        torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in on_card)
-    sg_us = sum(e.time_range.elapsed_us() for e in on_card if "::sg_" in e.name)
-    msd_us = sum(e.time_range.elapsed_us() for e in on_card if "::msd_" in e.name)
-    share = {"step_device_ms": dev_us / 1e3, "sg_device_ms": sg_us / 1e3,
-             "msd_device_ms": msd_us / 1e3, "idle_share": 1 - dev_us / 1e3 / ms,
-             "device_events": len(on_card)}
-    if dev_us > 0:
-        print(f"profiled step (conv_impl={conv_impl!r}): device busy {dev_us / 1e3:.3f} ms, of "
-              f"which the stream-graph kernels {sg_us / 1e3:.3f} ms ({100 * sg_us / dev_us:.1f}%) "
-              f"and the per-layer conv kernels {msd_us / 1e3:.3f} ms "
-              f"({100 * msd_us / dev_us:.1f}%); {len(on_card)} device events; idle "
-              f"{100 * share['idle_share']:.1f}% of the median step")
-        by_name: dict = {}
-        for e in on_card:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
-            print(f"  device {us / 1e3:8.3f} ms {n:6d}x  {name[:110]}")
-    else:
-        print("profiled step: the profiler reported no device time (not measured)")
+    state, share = profile_step(step, state, batches[DISTILL_STEPS], ms,
+                                f"conv_impl={conv_impl!r}")
     return dict(out, share=share)
 
 
@@ -2354,11 +2404,19 @@ def main() -> int:
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": graph["library_ms"][kind],
-            "per": (f"launches: the main path's run of {DISTILL_STEPS} distill steps; times and "
-                    f"bound: one pass over the 10 segments of the 3-member discriminator at "
-                    f"{SG_ELEMENTS} elements x 43,680 samples, fp32 (library: the interpreter's "
-                    "cuDNN conv chain over the same discriminator); max_abs_err: every segment "
-                    "(function :786)"),
+            "host_ms": distill["sg_host_ms"][kind] * len(rows) / distill["per_step"][kind],
+            "redesigned": ("one cooperative launch per segment and pass: units of tiles in "
+                           "phases between grid barriers, tiles shaped by the op (all of c_out "
+                           "a thread up to 4 channels), input windows staged once per tile, dW "
+                           "split partials summed in split order in the same launch"),
+            "per": (f"launches: the main path's run of {DISTILL_STEPS} distill steps (one per "
+                    f"segment and pass); times and bound: one pass over the 10 segments of the "
+                    f"3-member discriminator at {SG_ELEMENTS} elements x 43,680 samples, fp32 "
+                    "(library: the interpreter's cuDNN conv chain over the same discriminator); "
+                    "host_ms: the host time of the wrapper and launch functions for the "
+                    "10 launches of a pass in the distill steps, the segments built anew each "
+                    "call; max_abs_err: every "
+                    "segment (function :786)"),
         }
         sg_ms += entry["ms"]
         kernels.append(entry)

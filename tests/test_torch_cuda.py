@@ -361,30 +361,55 @@ def _member_segments(elements: int = 3) -> list:
     return rec
 
 
-def test_stream_graph_kernels_match_plain_fp32(card, no_tf32):
+def _stream_graph_kernels_match_plain(card, dtype):
+    """Every segment: one launch a pass, every level and dx/dW/db against
+    the plain version (fp32 within 1e-5 / 1e-4; bf16 within 2^-4 of the
+    plain tensor's peak), two backward runs bit-identical."""
     from hifigan_tpu_torch.ops import stream_graph as sg
 
     gen = torch.Generator().manual_seed(2)
     for seg, ins, tabs, bs, m in _member_segments():
-        ins = [x.to(card) for x in ins]
-        tabs = [t.to(card) for t in tabs]
+        ins = [x.to(card, dtype) for x in ins]
+        tabs = [t.to(card, dtype) for t in tabs]
         bs = [None if b is None else b.to(card) for b in bs]
-        before = sg.launches()["fwd"]
+        before = sg.launches()
         ys = sg.fused_stream_graph(seg, ins, tabs, bs, members=m)
-        assert sg.launches()["fwd"] - before == len(seg.ops)
+        assert sg.launches() == dict(before, fwd=before["fwd"] + 1)
         for a, b in zip(ys, sg.fused_stream_graph_reference(seg, ins, tabs, bs, m)):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-        dys = [torch.randn(y.shape, generator=gen).to(card) for y in ys]
+            assert a.dtype == b.dtype == dtype
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            else:
+                assert (a.float() - b.float()).abs().max() <= 2.0 ** -4 * b.float().abs().max()
+        dys = [torch.randn(y.shape, generator=gen).to(card, dtype) for y in ys]
         xs = [x.clone().requires_grad_() for x in ins]
         tt = [t.clone().requires_grad_() for t in tabs]
         bb = [None if b is None else b.clone().requires_grad_() for b in bs]
         outs = sg.fused_stream_graph(seg, xs, tt, bb, members=m)
-        got = torch.autograd.grad(outs, xs + tt + [b for b in bb if b is not None], dys)
+        wrt = xs + tt + [b for b in bb if b is not None]
+        before = sg.launches()
+        got = torch.autograd.grad(outs, wrt, dys, retain_graph=True)
+        assert sg.launches() == dict(before, bwd_dx=before["bwd_dx"] + 1,
+                                     bwd_dw=before["bwd_dw"] + 1)
+        again = torch.autograd.grad(outs, wrt, dys)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         dxs, dws, dbs = sg.fused_stream_graph_backward_reference(
             seg, ins, [o.detach() for o in outs], dys, tabs, m)
         want = list(dxs) + list(dws) + [d for d, b in zip(dbs, bs) if b is not None]
         for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            else:
+                assert (a.float() - b.float()).abs().max() <= 2.0 ** -4 * b.float().abs().max()
+
+
+def test_stream_graph_kernels_match_plain_fp32(card, no_tf32):
+    _stream_graph_kernels_match_plain(card, torch.float32)
+
+
+def test_stream_graph_kernels_match_plain_bf16(card, no_tf32):
+    _stream_graph_kernels_match_plain(card, torch.bfloat16)
 
 
 def test_stream_graph_wrapper_rejects_bad_inputs(card):
