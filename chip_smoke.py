@@ -10,15 +10,15 @@ into the git-ignored ``build/kernels``), then:
 2. holds the fused MRF-stage kernel against its plain PyTorch version at
    every V1 stage, full width, at the lengths of a 256-frame request, B=1,
    B=4 and B=16 (the batches whose tiles the main path uses): fp32 (the
-   SIMT body) with TF32 off within 1e-4, bf16 (the tensor-core body, one
-   cooperative launch per stage) within BF16_REL_TOL of the plain
-   version's peak (see below), and V2's four stages (C 64 to 8) at B=1 in
-   bf16; prints each call's plan (body, schedule, grid, tile), errors,
-   times and TFLOP/s, and the stages' sum per V1 request at each batch
-   beside the cuDNN chain's (bf16 and fp32); then the same kernel with the
+   3xTF32 body) with TF32 off within 1e-4, bf16 (the tensor-core body)
+   within BF16_REL_TOL of the plain version's peak (see below), both one
+   cooperative launch per stage, and V2's four stages (C 64 to 8) at B=1 in
+   bf16; prints each call's plan (body, schedule, grid, tile, shared
+   memory), errors, times and TFLOP/s, and the stages' sum per V1 request
+   at each batch beside the cuDNN chain's (bf16 and fp32); then the same kernel with the
    upsampler folded in (``pre_pack``) at V1's and V2's stages 2 and 3 (the
    stages ``fold_up`` folds), the previous stage's output of a 256-frame
-   request as input, B=1 and B=16 and a ragged T_in at B=3, fp32 (V1)
+   request as input, B=1, B=4 and B=16 and a ragged T_in at B=3, fp32 (V1)
    and bf16, printing the kernel's time with and without the upsampling
    phase, the plain version's and the cuDNN chain's (transposed conv
    included) and the bound with the upsampler's work;
@@ -30,7 +30,10 @@ into the git-ignored ``build/kernels``), then:
    range and each path's error against the plain fp32 ``Generator`` within
    SERVE_REL_TOL of its peak; prints ms per request (median of SERVE_REPS,
    the two paths timed in turn), the real-time factor, launches per request and the folded path's
-   distance from the unfolded one;
+   distance from the unfolded one; then the same two requests through
+   ``make_fast_vocoder(dtype=torch.float32)`` unfolded and with ``fold_up``
+   (the fp32 body), counted the same way, each within FP32_TOL of the fp32
+   ``Generator``'s peak, with ms per request and the real-time factor;
 3b. streams a seeded STREAM_FRAMES-frame V1 mel in STREAM_CHUNK-frame chunks
    at B=1 and B=4 through the stateful streamer (``make_streaming_vocoder``,
    bf16, every stage's MRF through the kernel; the counts set to 0 just
@@ -38,7 +41,7 @@ into the git-ignored ``build/kernels``), then:
    (``streaming_vocode`` over ``make_fast_vocoder``), each held against
    whole-utterance ``make_fast_vocoder`` synthesis within SERVE_REL_TOL of
    its peak (the stateful one from sample ``delay_samples`` on), then one
-   fp32 stateful pass (the SIMT body) against the fp32 ``Generator``
+   fp32 stateful pass (the 3xTF32 body) against the fp32 ``Generator``
    within FP32_TOL; prints delay_samples, ms per chunk and the real-time
    factor;
 4. runs ``python -m hifigan_tpu_torch.cli.infer --fast`` end to end on a
@@ -130,10 +133,11 @@ into the git-ignored ``build/kernels``), then:
    (the kernel's FFT body) with the count set to 0 just before and read just
    after, holds the fused log-mel kernel against its plain version (forward
    within 2e-4 + 1e-4 |plain|, the gradient of a sin-weighted sum within
-   FP32_TOL of its peak), then the same at n_fft 1200, hop 300 (not a power
-   of two: the dense body), and prints kernel, plain and cuFFT times, the
-   bound of the work a log-mel needs (a real FFT per frame) and that of the
-   dense-DFT algorithm;
+   FP32_TOL of its peak), then the same at n_fft 1200, hop 300 (2^4 3 5^2:
+   the FFT body's radix-5 and radix-3 passes) and at n_fft 1100, hop 275
+   (a factor 11: the dense body), each counted per body, and prints kernel,
+   plain and cuFFT times, the bound of the work a log-mel needs (a real FFT
+   per frame) and that of the dense-DFT algorithm;
 14. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
@@ -174,7 +178,7 @@ BF16_REL_TOL = 2.0 ** -4
 # phase 2, so the same allowance: 2^-4 of the fp32 waveform's peak.
 SERVE_REL_TOL = 2.0 ** -4
 BATCHES = (1, 4, 16)
-PRE_BATCHES = (1, 16)
+PRE_BATCHES = (1, 4, 16)
 SERVE_REPS = {1: 21, 16: 9}  # timed requests of each serving path, in turn
 STREAM_CHUNK = 32  # mel frames a streaming step
 STREAM_FRAMES = 320  # the streamed mel
@@ -298,10 +302,10 @@ def stage_inputs_of(h, sd, mel: torch.Tensor, dev) -> tuple[list, list]:
 def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict:
     """Phase 2: the MRF-stage kernel against its plain version at every stage
     of config ``h``, full width, the lengths of a 256-frame request: fp32
-    within FP32_TOL (the SIMT body), bf16 within BF16_REL_TOL of the plain
+    within FP32_TOL (the 3xTF32 body), bf16 within BF16_REL_TOL of the plain
     version's peak (the tensor-core body). Prints each call's plan (body,
-    schedule, grid, tile), errors, times, TFLOP/s and bound; sums the bf16
-    stage times per request and batch."""
+    schedule, grid, tile, channel chunk, shared memory), errors, times,
+    TFLOP/s and bound; sums the stage times per request, dtype and batch."""
     from hifigan_tpu_torch.ops import resblock_tail as tail
 
     n_stages = len(h["upsample_rates"])
@@ -346,8 +350,9 @@ def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                 bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
                 print(f"{name} stage {i} C={packed['channels']} T={xs.shape[1]} B={batch} "
                       f"{str(dtype)[6:]}{' +post' if post else ''} [{plan['body']}, "
-                      f"{plan['schedule']}, grid {plan['grid']}, tile {plan['tile']}, "
-                      f"{plan['items']} items]: max_abs_err {err:.3e} "
+                      f"{plan['schedule']}, grid {plan['grid']}, tile {plan['tile']}x{plan['bn']}, "
+                      f"chunk {plan['kc']}, smem {plan['smem']} B, {plan['items']} items]: "
+                      f"max_abs_err {err:.3e} "
                       f"(tol {tol:.3e}, peak {peak:.3f}, cudnn chain {lib_err:.3e}) "
                       f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {l_ms:.4f} ms "
                       f"bound {bound:.4f} ms ({ops_n / k_ms / 1e9:.2f} TFLOP/s)")
@@ -365,7 +370,7 @@ def mrf_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
             r["bound_ms"] = max(r["ops"] / rate, r["bytes"] / H100_BYTES_PER_S) * 1e3
     per_batch = per_dtype.get(torch.bfloat16)
     return {"errs": errs, "per_batch": per_batch, "per_batch_fp32": per_dtype.get(torch.float32),
-            "request": per_batch[batches[0]]}
+            "request": per_batch[batches[0]] if per_batch else None}
 
 
 def stage_cost(packed: dict, batch: int, seq: int, esize: int, post: bool,
@@ -391,7 +396,7 @@ def pre_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
     """Phase 2, folded upsampler: the MRF-stage kernel with ``pre_pack``
     against its plain version at every stage ``make_fast_vocoder(fold_up=
     True)`` folds, full width, the previous stage's output of a 256-frame
-    request as input (and a ragged T_in at B=3): fp32 (the SIMT body)
+    request as input (and a ragged T_in at B=3): fp32 (the 3xTF32 body)
     within FP32_TOL, bf16 within BF16_REL_TOL of the plain version's peak.
     Prints the kernel's time with and without the upsampling phase (the
     latter on the upsampled input), the plain version's, the cuDNN chain's
@@ -403,8 +408,9 @@ def pre_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
     n_stages = len(h["upsample_rates"])
     _, heads = stage_inputs_of(h, sd, mel, dev)
     errs = {dtype: 0.0 for dtype in dtypes}
-    per_batch = {b: {"ms": 0.0, "ms_without_pre": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                     "ops": 0, "bytes": 0} for b in batches}
+    per_dtype = {dtype: {b: {"ms": 0.0, "ms_without_pre": 0.0, "plain_ms": 0.0,
+                             "library_ms": 0.0, "ops": 0, "bytes": 0} for b in batches}
+                 for dtype in dtypes}
     for dtype in dtypes:
         esize = torch.tensor([], dtype=dtype).element_size()
         for i in (i for i in range(n_stages) if folds_upsampler(h, i)):
@@ -446,7 +452,7 @@ def pre_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                 tol = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL * peak
                 check(err <= tol, f"{tag}: error {err} > {tol}")
                 errs[dtype] = max(errs[dtype], err)
-                if batch not in per_batch:  # the ragged case: held, not timed
+                if batch not in batches:  # the ragged case: held, not timed
                     print(f"{tag} C={c} from {pre['c_in']} [{plan['body']}, grid {plan['grid']}]: "
                           f"max_abs_err {err:.3e} (tol {tol:.3e}, peak {peak:.3f})")
                     continue
@@ -463,19 +469,22 @@ def pre_phase(h, sd, mel: torch.Tensor, dev, name: str, dtypes, batches) -> dict
                 peak_rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
                 bound = max(ops_n / peak_rate, bytes_n / H100_BYTES_PER_S) * 1e3
                 print(f"{tag} C={c} from {pre['c_in']} [{plan['body']}, {plan['schedule']}, grid "
-                      f"{plan['grid']}, {plan['items']} items]: max_abs_err {err:.3e} (tol "
+                      f"{plan['grid']}, smem {plan['smem']} B, {plan['items']} items]: "
+                      f"max_abs_err {err:.3e} (tol "
                       f"{tol:.3e}, peak {peak:.3f}, cudnn chain {lib_err:.3e}) kernel "
                       f"{k_ms:.4f} ms (without the upsampling phase {k0_ms:.4f} ms) plain "
                       f"{p_ms:.4f} ms cudnn {l_ms:.4f} ms bound {bound:.4f} ms "
                       f"({ops_n / k_ms / 1e9:.2f} TFLOP/s)")
-                if dtype == torch.bfloat16:
-                    r = per_batch[batch]
-                    for key, v in (("ms", k_ms), ("ms_without_pre", k0_ms), ("plain_ms", p_ms),
-                                   ("library_ms", l_ms), ("ops", ops_n), ("bytes", bytes_n)):
-                        r[key] += v
-    for r in per_batch.values():
-        r["bound_ms"] = max(r["ops"] / H100_BF16_FLOPS, r["bytes"] / H100_BYTES_PER_S) * 1e3
-    return {"errs": errs, "per_batch": per_batch}
+                r = per_dtype[dtype][batch]
+                for key, v in (("ms", k_ms), ("ms_without_pre", k0_ms), ("plain_ms", p_ms),
+                               ("library_ms", l_ms), ("ops", ops_n), ("bytes", bytes_n)):
+                    r[key] += v
+    for dtype, rows in per_dtype.items():
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
+        for r in rows.values():
+            r["bound_ms"] = max(r["ops"] / rate, r["bytes"] / H100_BYTES_PER_S) * 1e3
+    return {"errs": errs, "per_batch": per_dtype.get(torch.bfloat16),
+            "per_batch_fp32": per_dtype.get(torch.float32)}
 
 
 def stream_phase(h, sd, fast, plain, dev, mel_gen) -> dict:
@@ -486,7 +495,7 @@ def stream_phase(h, sd, fast, plain, dev, mel_gen) -> dict:
     SERVE_REL_TOL of the peak of whole-utterance ``make_fast_vocoder``
     synthesis; the halo streamer (``streaming_vocode`` over
     ``make_fast_vocoder``) against the same, everywhere; then one fp32
-    stateful pass (the SIMT body) within FP32_TOL of the fp32 Generator
+    stateful pass (the 3xTF32 body) within FP32_TOL of the fp32 Generator
     after the delay. Prints delay_samples, ms per chunk (host clock, a
     synchronize a chunk, median) and the real-time factor."""
     from hifigan_tpu_torch.models.streaming import make_streaming_vocoder
@@ -558,9 +567,9 @@ def stream_phase(h, sd, fast, plain, dev, mel_gen) -> dict:
               f"whole-utterance max_abs_err {err:.3e} (tol {SERVE_REL_TOL * peak:.3e})")
         check(wav.shape == tuple(ref.shape) and err <= SERVE_REL_TOL * peak,
               f"halo stream B={b}: {wav.shape} error {err} > {SERVE_REL_TOL} * {peak}")
-    # fp32: the SIMT body on chunks, against the fp32 Generator
+    # fp32: the 3xTF32 body on chunks, against the fp32 Generator
     init32, step32, delay32 = make_streaming_vocoder(h, sd, dtype=torch.float32)
-    mel = mels[1][:, :, :2 * STREAM_CHUNK]
+    mel = mels[1][:, :, :4 * STREAM_CHUNK]
     tail.LAUNCHES = 0
     stream, chunk_ms, per_chunk = run_stateful(step32, init32(1), mel)
     out["fp32_launches"] = tail.LAUNCHES
@@ -569,11 +578,68 @@ def stream_phase(h, sd, fast, plain, dev, mel_gen) -> dict:
     total = ref.shape[-1]
     err = (stream[:, :, 2 * delay32:] - ref[:, :, delay32:total - delay32]).abs().max().item()
     out["fp32_err"] = err
+    out["fp32_ms_per_chunk"] = float(np.median(chunk_ms[1:]))
     print(f"stateful stream fp32 B=1 ({mel.shape[-1]} frames): delay_samples {delay32}, "
-          f"{float(np.median(chunk_ms)):.3f} ms per chunk, launches per chunk {per_chunk}; from "
+          f"{out['fp32_ms_per_chunk']:.3f} ms per chunk (median after the first, "
+          f"{chunk_ms[0]:.3f}), {chunk_s / (out['fp32_ms_per_chunk'] / 1e3):.1f}x real time, "
+          f"launches per chunk {per_chunk}; from "
           f"the delay on vs the fp32 Generator max_abs_err {err:.3e} (tol {FP32_TOL})")
     check(delay32 == delay and all(n == n_stages for n in per_chunk) and err <= FP32_TOL,
           f"fp32 stateful stream: delay {delay32}, launches {per_chunk}, error {err}")
+    return out
+
+
+def serve_fp32_phase(h, sd, mels: dict, refs: dict, dev) -> dict:
+    """Phase 3, fp32: the requests ``mels`` through ``make_fast_vocoder(
+    dtype=torch.float32)``, unfolded and with ``fold_up`` (the fp32 body on
+    every stage), each path's launch count set to 0 just before and read
+    just after its run (and after each request); each waveform within
+    FP32_TOL of the fp32 ``Generator``'s peak (``refs``); ms per request
+    (median of SERVE_REPS, the two paths in turn) and the real-time factor."""
+    from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
+    from hifigan_tpu_torch.ops import resblock_tail as tail
+
+    n_stages = len(h["upsample_rates"])
+    hop = int(np.prod(h["upsample_rates"]))
+    paths = {"": make_fast_vocoder(h, sd, dtype=torch.float32),
+             " fold_up": make_fast_vocoder(h, sd, dtype=torch.float32, fold_up=True)}
+    out = {"launches": {}, "per_request": {}, "ms": {}, "err": 0.0}
+    wavs = {}
+    for tag, fn in paths.items():
+        tail.LAUNCHES = 0
+        per = {}
+        for b, m in mels.items():
+            before = tail.LAUNCHES
+            wavs[tag, b] = fn(m)
+            per[str(b)] = tail.LAUNCHES - before
+        torch.cuda.synchronize()
+        out["launches"][tag] = tail.LAUNCHES
+        out["per_request"][tag] = per
+        check(all(n == n_stages for n in per.values()),
+              f"fp32 serve{tag}: launches per request {per}, expected {n_stages} each")
+    for b, m in mels.items():
+        req_ms = {tag: [] for tag in paths}
+        for _ in range(SERVE_REPS[b]):
+            for tag, fn in paths.items():
+                t0 = time.perf_counter()
+                fn(m)
+                torch.cuda.synchronize()
+                req_ms[tag].append((time.perf_counter() - t0) * 1e3)
+        peak = refs[b].abs().max().item()
+        for tag in paths:
+            wav = wavs[tag, b]
+            check(tuple(wav.shape) == tuple(refs[b].shape) and bool(torch.isfinite(wav).all()),
+                  f"fp32 serve{tag} B={b}: {tuple(wav.shape)} or non-finite")
+            err = (wav - refs[b]).abs().max().item()
+            ms = float(np.median(req_ms[tag]))
+            out["ms"].setdefault(tag, {})[b] = ms
+            out["err"] = max(out["err"], err)
+            rtf = b * FRAMES * hop / h["sampling_rate"] / (ms / 1e3)
+            print(f"serve fp32{tag} B={b}: {ms:.3f} ms/request (median of {len(req_ms[tag])}), "
+                  f"{rtf:.1f}x real time, launches per request {out['per_request'][tag][str(b)]}; "
+                  f"vs fp32 Generator max_abs_err {err:.3e} (tol {FP32_TOL * peak:.3e}, "
+                  f"peak {peak:.4f})")
+            check(err <= FP32_TOL * peak, f"fp32 serve{tag} B={b}: {err} > {FP32_TOL} * {peak}")
     return out
 
 
@@ -1978,10 +2044,12 @@ def hold_log_mel(name: str, y: torch.Tensor, got: torch.Tensor, cfg, auto) -> di
 def logmel_phase(h, dev) -> dict:
     """Phase 13: the fused log-mel kernel through mel extraction
     (``log_mel_spectrogram(y, MelConfig.from_hparams(h, method='pallas'))``)
-    at the V1 geometry (its FFT body), with the count set to 0 just before
-    and read just after, each batch held by :func:`hold_log_mel`; then the
-    dense body at a geometry whose n_fft is not a power of two (1200 / 300,
-    n_fft = 4 hop as the gate asks) held the same way."""
+    at the V1 geometry (its FFT body), with the counts set to 0 just before
+    and read just after, each batch held by :func:`hold_log_mel`; then, each
+    counted per body just around its extraction, n_fft 1200 / hop 300 (2^4
+    3 5^2: the FFT body's radix-5 and radix-3 passes) and n_fft 1100 / hop
+    275 (a factor 11: the dense body), n_fft = 4 hop as the gate asks, held
+    the same way."""
     import dataclasses
 
     from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
@@ -1989,28 +2057,38 @@ def logmel_phase(h, dev) -> dict:
 
     cfg = MelConfig.from_hparams(h, method="pallas")
     auto = MelConfig.from_hparams(h)
-    check(logmel.uses_fft(cfg), f"the V1 geometry should take the FFT body: {cfg}")
     sr = h["sampling_rate"]
     lengths = {"16 x 10 s": 10 * sr, "16 x 8192": SEGMENT, "16 x 8192+113": SEGMENT + 113}
     ys = {name: torch.from_numpy(synthetic_audio(16, t, sr, SEED + 60 + i)).to(dev)
           for i, (name, t) in enumerate(lengths.items())}
     logmel.LAUNCHES = 0
+    logmel.BODY_LAUNCHES.update(fft=0, dense=0)
     outs = {name: log_mel_spectrogram(y, cfg) for name, y in ys.items()}
     torch.cuda.synchronize()
     launches = logmel.LAUNCHES
-    check(launches == len(ys), f"mel extraction launched the log-mel kernel {launches} times, "
-                               f"expected {len(ys)}")
+    check(launches == len(ys) and logmel.BODY_LAUNCHES == {"fft": len(ys), "dense": 0},
+          f"mel extraction launched the log-mel kernel {launches} times "
+          f"({logmel.BODY_LAUNCHES}), expected {len(ys)}, all on the FFT body")
     rows = {name: hold_log_mel(name, y, outs[name], cfg, auto) for name, y in ys.items()}
-    geometry = dict(n_fft=1200, win_size=1200, hop_size=300)
-    dense = dataclasses.replace(cfg, **geometry)
-    check(logmel.supports_fused_log_mel(dense) and not logmel.uses_fft(dense),
-          f"{dense} should take the dense body")
     y = ys["16 x 10 s"]
-    with torch.no_grad():
-        got = log_mel_spectrogram(y, dense)
-    rows["16 x 10 s, n_fft 1200"] = hold_log_mel("16 x 10 s, n_fft 1200", y, got, dense,
-                                                 dataclasses.replace(auto, **geometry))
-    return {"launches": launches, "err": max(r["err"] for r in rows.values()),
+    body_launches = {}
+    for n_fft, body in ((1200, "fft"), (1100, "dense")):
+        name = f"16 x 10 s, n_fft {n_fft}"
+        geometry = dict(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+        other = dataclasses.replace(cfg, **geometry)
+        check(logmel.supports_fused_log_mel(other), f"{other} should be admitted")
+        logmel.BODY_LAUNCHES.update(fft=0, dense=0)
+        with torch.no_grad():
+            got = log_mel_spectrogram(y, other)
+        torch.cuda.synchronize()
+        took = dict(logmel.BODY_LAUNCHES)
+        check(took == {"fft": 0, "dense": 0, body: 1},
+              f"{name}: launches per body {took}, expected one on the {body} body")
+        body_launches[n_fft] = took[body]
+        rows[name] = hold_log_mel(name, y, got, other, dataclasses.replace(auto, **geometry))
+        check(rows[name]["body"] == body, f"{name} took the {rows[name]['body']} body")
+    return {"launches": launches, "body_launches": body_launches,
+            "err": max(r["err"] for r in rows.values()),
             "grad_err": max(r["grad_err"] for r in rows.values()), "rows": rows}
 
 
@@ -2055,8 +2133,9 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
         "name": "fused_log_mel",
         "route": "cuda",
         "source": "hifigan_tpu_torch/csrc/logmel.cu",
-        "redesigned": ("a Stockham FFT per pair of frames in shared memory and a sparse "
-                       "filterbank (power-of-two n_fft); other geometries keep the dense DFT"),
+        "redesigned": ("a mixed-radix (2, 3, 4, 5) Stockham FFT per pair of frames in shared "
+                       "memory and a sparse filterbank (n_fft = 2^a 3^b 5^c); other geometries "
+                       "keep the dense DFT"),
         "replaces": "hifigan_tpu/ops/pallas/logmel.py:135",
         "launches": mel["launches"],
         "launches_per_step": None,
@@ -2069,11 +2148,84 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
                 "batch, fp32 (library: method='auto', torch.fft.rfft; bound: the work a log-mel "
                 "needs, a real FFT per frame and the filterbank's nonzeros, while "
                 "rows.dense_dft_bound_ms bounds the dense-DFT algorithm only); max_abs_err: "
-                "the three batches and the dense body at n_fft 1200, hop 300 (fp32 only: the op "
+                "the three batches and n_fft 1200 and 1100 (fp32 only: the op "
                 "takes fp32); its backward is the plain composition"),
         "rows": mel["rows"],
     })
+    for n_fft, name, what in ((1200, "mixed_radix", "the FFT body's radix-5, 5, 3, 4, 4 passes"),
+                              (1100, "dense", "the dense-DFT body (n_fft with a factor 11)")):
+        row = mel["rows"][f"16 x 10 s, n_fft {n_fft}"]
+        kernels.append({
+            "name": f"fused_log_mel.{name}",
+            "route": "cuda",
+            "source": "hifigan_tpu_torch/csrc/logmel.cu",
+            "replaces": "hifigan_tpu/ops/pallas/logmel.py:135",
+            "launches": mel["body_launches"][n_fft],
+            "launches_per_step": None,
+            "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "per": (f"n_fft {n_fft}, hop {n_fft // 4}, 80 mels: {what}; launches: the mel "
+                    "extraction of the 16 x 10 s batch at this geometry, counted per body; "
+                    "times, bound (the work a log-mel needs) and max_abs_err: that batch, fp32 "
+                    "(library: method='auto', torch.fft.rfft)"),
+        })
     return kernels
+
+
+def fp32_tail_entries(mrf: dict, pre: dict, serve32: dict, stream: dict, pre_errs: dict) -> list:
+    """The ``kernels`` line's entries of the MRF-stage kernel's fp32 body
+    and of its upsampling phase in fp32."""
+    redesigned = ("3xTF32 on the tensor cores through the conv core (csrc/conv_core.cuh), each "
+                  "ring stage's sum promoted with IEEE adds, in the bf16 body's schedule: one "
+                  "cooperative launch per stage, conv by conv over the whole sequence")
+    r = mrf["per_batch_fp32"][1]
+    bnd, by = bound_ms(r["ops"], r["bytes"], FP32_MMA_FLOPS)
+    entries = [{
+        "name": "fused_tail_stage.fp32",
+        "route": "cuda",
+        "source": "hifigan_tpu_torch/csrc/resblock_tail.cu",
+        "replaces": "hifigan_tpu/ops/pallas/resblock_tail.py:152",
+        "launches": serve32["launches"][""],
+        "launches_per_request": serve32["per_request"][""],
+        "max_abs_err": mrf["errs"][torch.float32],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bnd, "bound_by": by,
+        "library_ms": r["library_ms"],
+        "per_batch": {str(b): {k: v[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                      for b, v in mrf["per_batch_fp32"].items()},
+        "serve_ms": serve32["ms"][""],
+        "serve_err": serve32["err"],
+        "stream_ms_per_chunk": stream["fp32_ms_per_chunk"],
+        "stream_launches": stream["fp32_launches"],
+        "redesigned": redesigned,
+        "per": ("launches: make_fast_vocoder(dtype=torch.float32)'s run of two requests (B=1 "
+                "and B=16); times and bound: one V1 B=1 256-frame request, 4 stage calls, fp32 "
+                "(library: the cuDNN conv chain, TF32 off; bound: operations at the 3xTF32 "
+                "rate); max_abs_err: every V1 stage at B=1, 4, 16; stream: the fp32 stateful "
+                "streamer, ms a chunk and its launches"),
+    }]
+    r = pre["per_batch_fp32"][1]
+    bnd, by = bound_ms(r["ops"], r["bytes"], FP32_MMA_FLOPS)
+    entries.append({
+        "name": "fused_tail_stage.pre_phase_fp32",
+        "route": "cuda",
+        "source": "hifigan_tpu_torch/csrc/resblock_tail.cu",
+        "replaces": "hifigan_tpu/ops/pallas/resblock_tail.py:124",
+        "launches": serve32["launches"][" fold_up"],
+        "launches_per_request": serve32["per_request"][" fold_up"],
+        "max_abs_err": pre_errs[torch.float32],
+        "ms": r["ms"], "ms_without_pre": r["ms_without_pre"], "plain_ms": r["plain_ms"],
+        "bound_ms": bnd, "bound_by": by, "library_ms": r["library_ms"],
+        "serve_ms": serve32["ms"][" fold_up"],
+        "redesigned": redesigned + "; the upsampler split by output phase, one more phase",
+        "per": ("launches: make_fast_vocoder(dtype=torch.float32, fold_up=True)'s run of two "
+                "requests (B=1 and B=16); times and bound: V1 stages 2 and 3 with the "
+                "upsampler folded (pre_pack) at B=1, fp32, ms_without_pre the same kernel on "
+                "the upsampled input (library: the cuDNN chain with the transposed convs; "
+                "bound: operations at the 3xTF32 rate); max_abs_err: V1 stages 2-3 at B=1, 4, 16 "
+                "and a ragged T_in"),
+    })
+    return entries
 
 
 def main() -> int:
@@ -2173,9 +2325,10 @@ def main() -> int:
     launches_fold_up = tail.LAUNCHES
     check(all(n == n_stages for n in per_request_fold.values()),
           f"fold_up launches per request {per_request_fold}, expected {n_stages} each")
+    refs = {}
     for b, m in mels.items():
         with torch.no_grad():
-            ref = plain(m.to(dev))
+            ref = refs[b] = plain(m.to(dev))
         ref_peak = ref.abs().max().item()
         check(ref_peak > 0, f"served B={b}: the fp32 Generator's waveform is silent")
         for tag, wav in (("", outs[b]), (" fold_up", outs_fold[b])):
@@ -2205,6 +2358,8 @@ def main() -> int:
             check(max_err <= SERVE_REL_TOL * ref_peak, f"served{tag} B={b} vs fp32 Generator: "
                                                        f"max {max_err} > {SERVE_REL_TOL} * {ref_peak}")
     del folded
+    # ... and the fp32 body: the same requests in fp32, unfolded and with fold_up
+    serve32 = serve_fp32_phase(h, sd, mels, refs, dev)
 
     # 3b. both streamers through the kernel at 32-frame chunks
     stream = stream_phase(h, sd, fast, plain, dev, mel_gen)
@@ -2311,8 +2466,8 @@ def main() -> int:
         "per": ("launches: the main path's run of two requests (B=1 and B=16), "
                 "launches_per_request: each; times and bound: one V1 B=1 256-frame request, "
                 "4 stage calls, bf16 (per_batch: the same at B=1, 4, 16); max_abs_err: fp32 "
-                "(the SIMT body), max_abs_err_bf16: every V1 stage at B=1, 4, 16 and every V2 "
-                "stage at B=1"),
+                "(the 3xTF32 body, row fused_tail_stage.fp32), max_abs_err_bf16: every V1 "
+                "stage at B=1, 4, 16 and every V2 stage at B=1"),
         "redesigned": ("bf16: mma.sync tensor-core conv core, one cooperative launch per stage "
                        "walking the whole sequence conv by conv (no halo recompute)"),
         "per_batch": {str(b): {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -2333,7 +2488,7 @@ def main() -> int:
                     "upsampling phase (ms), the same kernel on the upsampled input "
                     "(ms_without_pre), the plain version, the cuDNN chain with the transposed "
                     "convs, the bound with the upsampler's work; errors over V1 and V2 stages "
-                    "2-3 at B=1, 16 and a ragged T_in; launches_fold_up: the fold_up serving "
+                    "2-3 at B=1, 4, 16 and a ragged T_in; launches_fold_up: the fold_up serving "
                     "path's run of two requests (B=1 and B=16)"),
         },
         "streaming": {
@@ -2348,6 +2503,7 @@ def main() -> int:
                     "streamer's over the same mels, fp32_launches: the fp32 stateful pass"),
         },
     }]
+    kernels += fp32_tail_entries(mrf, pre, serve32, stream, pre_errs)
     rows = [r for r in stack["per_scale"] if r["dtype"] == "float32"]
     stack_ms = 0.0
     for kind, line in (("fwd", 374), ("bwd_dx", 596), ("bwd_dw", 596)):

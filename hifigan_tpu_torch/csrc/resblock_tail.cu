@@ -27,26 +27,34 @@
 // What bounds it: arithmetic. A V1 request of 256 mel frames at B=1 does
 // about 152 GFLOP of MRF work (18 convs per stage, 126 taps * C^2 per
 // output sample) against a few tens of MB of activations and weights, far
-// above the H100's ridge (~295 FLOP/byte in bf16, ~20 in fp32).
+// above the H100's ridge (~295 FLOP/byte in bf16, ~49 in fp32 as 3xTF32).
 //
 // Two bodies, chosen by the storage type (the wrapper passes it
 // explicitly):
 //
-// fp32 -- the SIMT body (hifigan_mrf_stage). TF32 would break the 1e-4
-// fp32 parity, so fp32 stays on CUDA cores:
-// - Work item = (batch row, time tile). A block computes the tile plus the
-//   stage halo (sum of one chain's conv radii, + 3 with the post conv) and
-//   walks each resblock chain conv by conv, shrinking the computed rows by
-//   each conv's radius, so no output depends on a row it did not compute.
-// - Each conv is a tiled SIMT GEMM with fp32 FMA: out rows x out channels
-//   in 64x64 (C >= 64) or 128x32 tiles, 4x4 per thread; the K loop stages
-//   16 input channels of every tap's shifted rows (lrelu + sequence mask
-//   applied on the load) and those channels' weights in shared memory.
-// - Intermediates live in a per-block global scratch (two ping-pong
-//   buffers plus an fp32 mean accumulator); blocks loop over work items.
-// - A folded upsampler first computes the tile's whole window (tile plus
-//   halo) of upsampled x into a third scratch buffer, phase by phase, with
-//   the same SIMT GEMM over C_in; the chains then read x from there.
+// fp32 -- the 3xTF32 body (hifigan_mrf_stage_f32): the bf16 body's schedule
+// with the fp32 product of csrc/conv_core.cuh on the tensor cores.
+// - Schedule: one persistent cooperative launch per stage. A first phase
+//   writes lrelu(0.1)(x) to a plane of its own (with a folded upsampler:
+//   lrelu of the stage input, then an upsampling phase that stores the
+//   upsampled x and its lrelu). Phase j then computes conv j of every
+//   resblock over the whole sequence (the widest kernels first), a
+//   grid-wide barrier after each; then the fp32 mean over resblocks and,
+//   with the post conv, one more barrier and phase. No halo is recomputed
+//   and every SM gets work at B=1.
+// - Every conv reads a plane that is already activated, so the core's
+//   forward tile (conv_core::tap_conv) stages it as it is: 128 output rows
+//   (a tile may cross batch rows) x 16, 32 or 64 columns; the input window
+//   staged once per chunk of up to 64 channels for all taps, zero outside
+//   the sequence ('same' padding) and past C (any width); the taps'
+//   weights through a 3-stage cp.async ring of 32 reduction rows. 3xTF32:
+//   hi/lo split as each fragment is loaded, each ring stage summed into a
+//   zeroed partial and added with IEEE adds (conv_core::promote), since
+//   V1 stage 0 reduces over 11 x 256 terms.
+// - The epilogue adds the bias (and the residual at a pair's last conv)
+//   and stores what the later phases read: the output's lrelu(0.1) into
+//   the resblock's other activated plane and, at a pair's last conv, h in
+//   place (each element read and written by one thread).
 //
 // bf16 -- the tensor-core body (hifigan_mrf_stage_tc), the served path:
 // - Conv core: each conv is an implicit GEMM, M = output rows, N = C_out,
@@ -82,328 +90,275 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv_core.cuh"
+
+// ---------------------------------------------------------------------------
+// fp32 3xTF32 body
+// ---------------------------------------------------------------------------
 namespace {
+namespace f32 {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 16;   // input channels per K step
-constexpr int kTM = 4;    // output rows per thread
-constexpr int kAStride = kBK + 1;  // padded row of the staged input tile
+namespace cc = conv_core;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kBM = 128;  // output rows of a conv tile (across batch rows)
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// round through the storage type
-template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
-template <typename T> __device__ __forceinline__ float lrelu(float v, float slope) {
-  return v >= 0.f ? v : rnd<T>(v * slope);
-}
-
-struct StageArgs {
-  const void* x;       // (B, T, C) storage type, or (B, T_in, C_in) with pre_w
-  const void* w;       // every conv's (K, C, C) taps, concatenated
-  const void* bias;    // (n_conv, C)
-  const int* desc;     // per conv: k, dilation, offset of its taps in w
-  const void* post_w;  // (7, C) or null
-  const void* post_b;  // (1,)
-  void* y;             // (B, T, C) storage type, or (B, T) fp32 with post
-  const void* pre_w;   // (u, taps, C_in, C) phase-split upsampler taps, or null
-  const void* pre_b;   // (C,)
-  void* scratch;       // grid x (2, or 3 with pre_w) x work x C storage type
-  float* acc;          // grid x (tile + 2 * post_halo) x C fp32
-  int batch, seq, C, n_rb, convs_per_rb, pair_size, tile, halo, post_halo;
-  int n_tiles, a_floats;  // a_floats: shared floats before the weight tile
-  int cin, stride, taps, pre_pad;  // the folded upsampler's (seq = T_in * stride)
+struct Args {
+  const float* x;       // (B, T, C), or (B, T_in, cin) with pre_w
+  const float* w;       // every conv's (K, C, C) taps, concatenated
+  const float* bias;    // (n_conv, C)
+  const int* desc;      // per conv: k, dilation, offset of its taps in w
+  const float* post_w;  // (7, C) or null
+  const float* post_b;  // (1,)
+  float* y;             // (B, T, C), or (B, T) with post
+  float* scratch;       // see hifigan_mrf_stage_f32
+  const float* pre_w;   // (u, taps, cin, C) phase-split upsampler taps, or null
+  const float* pre_b;   // (C,)
+  int batch, seq, C, n_rb, convs_per_rb, pair_size, kc;
+  int cin, kc_in, stride, taps, pre_pad, seq_in;
 };
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
+// A scratch plane holds B*T*C floats, rounded up to 16 bytes
+__host__ __device__ inline long plane_floats(int batch, int seq, int C) {
+  return ((long)batch * seq * C + 3) & ~3L;
 }
 
-// One 'same' dilated conv over output rows [lo, hi) of the work window.
-// Row r of the window is sequence row g0 + r; src/res element (r, c) lives
-// at ptr[(r + off) * C + c]. Input rows outside [0, seq) read as zero.
-// res (may alias dst, element for element) adds the residual.
-template <typename T, int BN>
-__device__ void conv_rows(const T* w, const T* bias, int k, int d, int C,
-                          const T* src, long src_off, const T* res, long res_off, T* dst,
-                          int lo, int hi, int g0, int seq, float* As, float* Ws) {
-  constexpr int TX = BN / 4;
-  constexpr int TY = kThreads / TX;
-  constexpr int BM = TY * kTM;
-  const int r = (k - 1) * d / 2;
-  const int span = BM + (k - 1) * d;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+// The core's forward geometry of a stride-1 conv over (n, t, c_in) rows
+__host__ __device__ inline cc::Geom geom(int n, int t, int c_in, int c_out, int k, int d, int pad) {
+  cc::Geom G;
+  G.n = n;
+  G.t_in = t;
+  G.c_in = c_in;
+  G.t_out = t;
+  G.c_out = c_out;
+  G.k = k;
+  G.s = 1;
+  G.d = d;
+  G.groups = 1;
+  G.pad_l = pad;
+  G.ci_g = c_in;
+  G.co_g = c_out;
+  G.slope = 1.f;
+  return G;
+}
 
-  for (int m0 = lo; m0 < hi; m0 += BM) {
-    for (int n0 = 0; n0 < C; n0 += BN) {
-      float acc[kTM][4];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ float lrelu(float v, float slope) { return v >= 0.f ? v : v * slope; }
 
-      for (int c0 = 0; c0 < C; c0 += kBK) {
-        for (int i = tid; i < span * kBK; i += kThreads) {
-          const int row = i / kBK, kk = i % kBK;
-          const int wr = m0 - r + row;
-          const int g = g0 + wr, ci = c0 + kk;
-          float v = 0.f;
-          if (g >= 0 && g < seq && ci < C && wr < hi + r)
-            v = lrelu<T>(to_f(src[(wr + src_off) * C + ci]), 0.1f);
-          As[row * kAStride + kk] = v;
-        }
-        for (int i = tid; i < k * kBK * BN; i += kThreads) {
-          const int col = i % BN, rest = i / BN;
-          const int kk = rest % kBK, tap = rest / kBK;
-          const int ci = c0 + kk, co = n0 + col;
-          Ws[i] = (ci < C && co < C) ? to_f(w[((long)tap * C + ci) * C + co]) : 0.f;
-        }
-        __syncthreads();
-        for (int tap = 0; tap < k; ++tap) {
-          const float* Ab = As + (ty * kTM + tap * d) * kAStride;
-          const float* Wb = Ws + tap * kBK * BN + tx * 4;
+// acc <- the kBM x BN tile at rows [m0, m0 + kBM) of the n * t rows and
+// columns [n0, n0 + BN): tap q of output row t reads source row t + q*d +
+// shift of src (already activated), zeros outside [0, t) and past c_in.
+template <int BN>
+__device__ __forceinline__ void conv_tile(
+    float (&acc)[cc::Warps<kBM, BN>::MT][cc::Warps<kBM, BN>::NT][4], const cc::Geom& G, int kc,
+    const float* src, const float* w, int shift, int m0, int n0, unsigned char* smem) {
+  const cc::WinPlan P = cc::win_plan(G, false, true, kBM, BN, kc);
+  cc::TapArgs t;
+  t.src = src;
+  t.t_src = G.t_in;
+  t.c_src = G.c_in;
+  t.ch_base = 0;
+  t.rows = G.t_out;
+  t.M = G.n * G.t_out;
+  t.Lv = G.t_out + P.E;
+  t.shift = shift;
+  t.ntaps = G.k;
+  t.tap_dir = 1;
+  t.w = w;
+  t.tap_base = 0;
+  t.tap_step = 1;
+  t.rows_per_tap = G.c_in;
+  t.row_off = 0;
+  t.ld = G.c_out;
+  t.col0 = n0;
+  t.valid_cols = G.c_out - n0;
+  t.a_aligned = G.c_in % 4 == 0;
+  t.b_aligned = G.c_out % 4 == 0;
+  __syncthreads();  // the block's previous tile is done with shared memory
+  cc::tap_conv<float, kBM, BN>(acc, G, P, t, m0, smem);
+}
+
+// conv_post (k7, C -> 1) + tanh of one output sample, by one warp: the
+// lrelu(0.01) of the mean m (B's (T, C) plane) at rows [g - 3, g + 3],
+// zero outside the sequence.
+__device__ __forceinline__ float post_sample(const float* pw, float pb, int C, int lane,
+                                             const float* m, int g, int seq) {
+  float s = 0.f;
+  for (int idx = lane; idx < 7 * C; idx += 32) {
+    const int tap = idx / C, c = idx - tap * C, gg = g + tap - 3;
+    const float v = (gg >= 0 && gg < seq) ? lrelu(m[(long)gg * C + c], 0.01f) : 0.f;
+    s = fmaf(v, pw[idx], s);
+  }
+  for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
+  return tanhf(s + pb);
+}
+
+// MINB blocks share an SM where the phases have the tiles for it (the host
+// picks it, and a channel chunk whose shared memory lets them fit).
+template <int BN, int MINB>
+__global__ void __launch_bounds__(cc::kThreads, MINB) mrf_stage_f32_kernel(Args a) {
+  using W = cc::Warps<kBM, BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int C = a.C, seq = a.seq, M = a.batch * seq;
+  const long plane = plane_floats(a.batch, seq, C), n_el = (long)M * C;
+  const long gtid = (long)blockIdx.x * cc::kThreads + threadIdx.x;
+  const long gstride = (long)gridDim.x * cc::kThreads;
+  const int n_tiles = cc::cdiv(C, BN);
+  const bool pre = a.pre_w != nullptr, post = a.post_w != nullptr;
+  float* ax = a.scratch;     // lrelu(0.1) of x
+  float* rbs = ax + plane;   // per resblock: h, then its two activated planes
+  float* mean = post ? rbs + 3L * a.n_rb * plane : a.y;
+  float* up = rbs + (3L * a.n_rb + (post ? 1 : 0)) * plane;  // with pre: the upsampled x
+  const float* x = pre ? up : a.x;
+
+  if (pre) {
+    // lrelu of the stage input, then output phase p of rows m*u + p
+    float* xa = up + plane;
+    const long n_in = (long)a.batch * a.seq_in * a.cin;
+    for (long e = gtid; e < n_in; e += gstride) xa[e] = lrelu(a.x[e], 0.1f);
+    grid.sync();
+    const cc::Geom G = geom(a.batch, a.seq_in, a.cin, C, a.taps, 1, 0);
+    const int m_in = a.batch * a.seq_in, per_phase = cc::cdiv(m_in, kBM) * n_tiles;
+    for (int item = blockIdx.x; item < a.stride * per_phase; item += gridDim.x) {
+      const int p = item / per_phase, rest = item - p * per_phase;
+      const int m0 = (rest / n_tiles) * kBM, n0 = (rest % n_tiles) * BN;
+      const int off = (p + a.pre_pad) / a.stride - (a.taps - 1);
+      float acc[W::MT][W::NT][4];
+      conv_tile<BN>(acc, G, a.kc_in, xa, a.pre_w + (long)p * a.taps * a.cin * C, off, m0, n0,
+                    smem);
 #pragma unroll
-          for (int kk = 0; kk < kBK; ++kk) {
-            const float4 bv = *reinterpret_cast<const float4*>(Wb + kk * BN);
+      for (int i = 0; i < W::MT; ++i)
 #pragma unroll
-            for (int i = 0; i < kTM; ++i) {
-              const float av = Ab[i * kAStride + kk];
-              acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-              acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-              acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-              acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+        for (int j = 0; j < W::NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int m = m0 + cc::frag_row<kBM, BN>(i, v), col = n0 + cc::frag_col<kBM, BN>(j, v);
+            if (m >= m_in || col >= C) continue;
+            const int b = m / a.seq_in;
+            const long idx = ((long)b * seq + (long)(m - b * a.seq_in) * a.stride + p) * C + col;
+            const float val = acc[i][j][v] + a.pre_b[col];
+            up[idx] = val;
+            ax[idx] = lrelu(val, 0.1f);
+          }
+    }
+  } else {
+    for (long e = gtid; e < n_el; e += gstride) ax[e] = lrelu(a.x[e], 0.1f);
+  }
+  grid.sync();
+
+  // phase j: conv j of every resblock. act: the activated plane conv j
+  // reads (0 = ax, 1 or 2 = the resblock's); h_is_x: h is still x.
+  int act = 0;
+  bool h_is_x = true;
+  const int per_rb = cc::cdiv(M, kBM) * n_tiles;
+  for (int j = 0; j < a.convs_per_rb; ++j) {
+    const bool last = j % a.pair_size == a.pair_size - 1, final_conv = j == a.convs_per_rb - 1;
+    const int dst_act = act == 1 ? 2 : 1;
+    for (int item = blockIdx.x; item < a.n_rb * per_rb; item += gridDim.x) {
+      const int rb = a.n_rb - 1 - item / per_rb;  // the widest kernels first
+      const int rest = item % per_rb;
+      const int m0 = (rest / n_tiles) * kBM, n0 = (rest % n_tiles) * BN;
+      const int* dsc = a.desc + 3 * (rb * a.convs_per_rb + j);
+      const int k = dsc[0], d = dsc[1], r = (k - 1) * d / 2;
+      float* h = rbs + 3L * rb * plane;
+      const float* src = act == 0 ? ax : h + act * plane;
+      float* dst = h + dst_act * plane;
+      const float* res = h_is_x ? x : h;
+      const float* bias = a.bias + (long)(rb * a.convs_per_rb + j) * C;
+      float acc[W::MT][W::NT][4];
+      conv_tile<BN>(acc, geom(a.batch, seq, C, C, k, d, r), a.kc, src, a.w + dsc[2], -r, m0, n0,
+                    smem);
+#pragma unroll
+      for (int i = 0; i < W::MT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < W::NT; ++jj)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int m = m0 + cc::frag_row<kBM, BN>(i, v), col = n0 + cc::frag_col<kBM, BN>(jj, v);
+            if (m >= M || col >= C) continue;
+            const long idx = (long)m * C + col;
+            float val = acc[i][jj][v] + bias[col];
+            if (last) {
+              val = res[idx] + val;
+              h[idx] = val;
+              if (!final_conv) dst[idx] = lrelu(val, 0.1f);
+            } else {
+              dst[idx] = lrelu(val, 0.1f);
             }
           }
-        }
-        __syncthreads();
-      }
-
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const int o = m0 + ty * kTM + i;
-        if (o >= hi) continue;
-        const int g = g0 + o;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int co = n0 + tx * 4 + j;
-          if (co >= C) continue;
-          float v = rnd<T>(acc[i][j] + to_f(bias[co]));
-          if (res != nullptr) {
-            const float rv = (g >= 0 && g < seq) ? to_f(res[(o + res_off) * C + co]) : 0.f;
-            v = rnd<T>(rv + v);
-          }
-          dst[(long)o * C + co] = from_f<T>(v);
-        }
-      }
     }
+    act = dst_act;
+    if (last) h_is_x = false;
+    grid.sync();
+  }
+
+  // mean over resblocks, in fp32 and resblock order
+  const float n_rb = static_cast<float>(a.n_rb);
+  for (long e = gtid; e < n_el; e += gstride) {
+    float s = 0.f;
+    for (int r = 0; r < a.n_rb; ++r) s += rbs[3L * r * plane + e];
+    mean[e] = s / n_rb;
+  }
+  if (!post) return;
+  grid.sync();
+  const float pb = a.post_b[0];
+  const int lane = threadIdx.x % 32;
+  for (long row = gtid / 32; row < M; row += gstride / 32) {
+    const long b = row / seq;
+    const int t = static_cast<int>(row % seq);
+    const float v = post_sample(a.post_w, pb, C, lane, mean + b * seq * C, t, seq);
+    if (lane == 0) a.y[row] = v;
   }
 }
 
-// The folded upsampler over window rows [0, rows) (sequence rows g0 + r),
-// phase by phase: row m*u + p = bias + sum_t lrelu(xin[m + off(p) + t]) @
-// w[p][t], rounded; xin rows outside [0, seq_in) read as zero, window rows
-// outside [0, seq) are stored as zero. Same tiling as conv_rows.
-template <typename T, int BN>
-__device__ void upsample_rows(const T* w, const T* bias, const T* xin, int seq_in, int cin,
-                              int C, int u, int taps, int pad, T* dst, int g0, int rows, int seq,
-                              float* As, float* Ws) {
-  constexpr int TX = BN / 4;
-  constexpr int TY = kThreads / TX;
-  constexpr int BM = TY * kTM;
-  const int span = BM + taps - 1;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+// The column tile for width C (ops/resblock_tail.py::f32_tiling)
+inline int tile_n(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : 64; }
 
-  for (int p = 0; p < u; ++p) {
-    const int off = (p + pad) / u - (taps - 1);
-    const int m_lo = -floor_div(p - g0, u);  // ceil((g0 - p) / u)
-    const int m_hi = floor_div(g0 + rows - 1 - p, u);
-    const T* wp = w + (long)p * taps * cin * C;
-    for (int m0 = m_lo; m0 <= m_hi; m0 += BM) {
-      for (int n0 = 0; n0 < C; n0 += BN) {
-        float acc[kTM][4];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-        for (int c0 = 0; c0 < cin; c0 += kBK) {
-          for (int i = tid; i < span * kBK; i += kThreads) {
-            const int row = i / kBK, kk = i % kBK;
-            const int gi = m0 + off + row, ci = c0 + kk;
-            float v = 0.f;
-            if (gi >= 0 && gi < seq_in && ci < cin) v = lrelu<T>(to_f(xin[(long)gi * cin + ci]), 0.1f);
-            As[row * kAStride + kk] = v;
-          }
-          for (int i = tid; i < taps * kBK * BN; i += kThreads) {
-            const int col = i % BN, rest = i / BN;
-            const int kk = rest % kBK, tap = rest / kBK;
-            const int ci = c0 + kk, co = n0 + col;
-            Ws[i] = (ci < cin && co < C) ? to_f(wp[((long)tap * cin + ci) * C + co]) : 0.f;
-          }
-          __syncthreads();
-          for (int tap = 0; tap < taps; ++tap) {
-            const float* Ab = As + (ty * kTM + tap) * kAStride;
-            const float* Wb = Ws + tap * kBK * BN + tx * 4;
-#pragma unroll
-            for (int kk = 0; kk < kBK; ++kk) {
-              const float4 bv = *reinterpret_cast<const float4*>(Wb + kk * BN);
-#pragma unroll
-              for (int i = 0; i < kTM; ++i) {
-                const float av = Ab[i * kAStride + kk];
-                acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-                acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-                acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-                acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-              }
-            }
-          }
-          __syncthreads();
-        }
-
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const int m = m0 + ty * kTM + i;
-          if (m > m_hi) continue;
-          const int g = m * u + p;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int co = n0 + tx * 4 + j;
-            if (co >= C) continue;
-            const float v = (g >= 0 && g < seq) ? rnd<T>(acc[i][j] + to_f(bias[co])) : 0.f;
-            dst[(long)(g - g0) * C + co] = from_f<T>(v);
-          }
-        }
-      }
-    }
+const void* kernel_for(int bn, int minb) {
+  if (minb != 1 && minb != 2) return nullptr;
+  switch (bn) {
+    case 16:
+      return minb == 1 ? reinterpret_cast<const void*>(mrf_stage_f32_kernel<16, 1>)
+                       : reinterpret_cast<const void*>(mrf_stage_f32_kernel<16, 2>);
+    case 32:
+      return minb == 1 ? reinterpret_cast<const void*>(mrf_stage_f32_kernel<32, 1>)
+                       : reinterpret_cast<const void*>(mrf_stage_f32_kernel<32, 2>);
+    case 64:
+      return minb == 1 ? reinterpret_cast<const void*>(mrf_stage_f32_kernel<64, 1>)
+                       : reinterpret_cast<const void*>(mrf_stage_f32_kernel<64, 2>);
+    default: return nullptr;
   }
 }
 
-template <typename T, int BN>
-__global__ void __launch_bounds__(kThreads) mrf_stage_kernel(StageArgs a) {
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Ws = As + a.a_floats;
-
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  const T* bias = static_cast<const T*>(a.bias);
-  const int C = a.C, seq = a.seq, H = a.halo, hp = a.post_halo, tile = a.tile;
-  const int work = tile + 2 * H;
-  const int arows = tile + 2 * hp;
-  const bool pre = a.pre_w != nullptr;
-  T* bufA = static_cast<T*>(a.scratch) + (long)blockIdx.x * (pre ? 3 : 2) * work * C;
-  T* bufB = bufA + (long)work * C;
-  T* bufU = bufB + (long)work * C;  // the upsampled window (pre only)
-  float* accb = a.acc + (long)blockIdx.x * arows * C;
-  const int n_items = a.batch * a.n_tiles;
-
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int b = item / a.n_tiles;
-    const int t0 = (item % a.n_tiles) * tile;
-    const int g0 = t0 - H;  // sequence row of window row 0
-    const T* xb = x + (long)b * seq * C;
-    long x_off = g0;
-    if (pre) {
-      const int seq_in = seq / a.stride;
-      upsample_rows<T, BN>(static_cast<const T*>(a.pre_w), static_cast<const T*>(a.pre_b),
-                           x + (long)b * seq_in * a.cin, seq_in, a.cin, C, a.stride, a.taps,
-                           a.pre_pad, bufU, g0, work, seq, As, Ws);
-      __syncthreads();
-      xb = bufU;
-      x_off = 0;
-    }
-
-    for (int rb = 0; rb < a.n_rb; ++rb) {
-      const int* dsc = a.desc + 3 * rb * a.convs_per_rb;
-      int r_total = 0;
-      for (int j = 0; j < a.convs_per_rb; ++j) r_total += (dsc[3 * j] - 1) * dsc[3 * j + 1] / 2;
-
-      const T* h = xb;
-      long h_off = x_off;
-      const T* prev = xb;
-      long prev_off = x_off;
-      int r_done = 0;
-      for (int j = 0; j < a.convs_per_rb; ++j) {
-        const int k = dsc[3 * j], d = dsc[3 * j + 1];
-        r_done += (k - 1) * d / 2;
-        const int r_after = r_total - r_done;
-        const int lo = H - hp - r_after;
-        const int hi = H + tile + hp + r_after;
-        const bool first = (j % a.pair_size) == 0;
-        const bool last = (j % a.pair_size) == a.pair_size - 1;
-        const T* src = first ? h : prev;
-        const long src_off = first ? h_off : prev_off;
-        T* dst = (src == bufA) ? bufB : bufA;
-        conv_rows<T, BN>(w + dsc[3 * j + 2], bias + (long)(rb * a.convs_per_rb + j) * C, k, d,
-                         C, src, src_off, last ? h : nullptr, h_off, dst, lo, hi, g0, seq,
-                         As, Ws);
-        __syncthreads();
-        prev = dst;
-        prev_off = 0;
-        if (last) {
-          h = dst;
-          h_off = 0;
-        }
-      }
-      for (int e = threadIdx.x; e < arows * C; e += kThreads) {
-        const int row = e / C, c = e % C;
-        const float v = to_f(h[(H - hp + row + h_off) * C + c]);
-        accb[e] = rb == 0 ? v : accb[e] + v;
-      }
-      __syncthreads();
-    }
-
-    const float n_rb = static_cast<float>(a.n_rb);
-    if (a.post_w == nullptr) {
-      T* y = static_cast<T*>(a.y) + (long)b * seq * C;
-      for (int e = threadIdx.x; e < tile * C; e += kThreads) {
-        const int row = e / C, c = e % C;
-        if (t0 + row < seq) y[(long)(t0 + row) * C + c] = from_f<T>(accb[e] / n_rb);
-      }
+// Shared memory (bytes) of the fp32 body: the most any of its convs' tiles
+// needs (the core's forward window plan), or -1 where a conv's geometry or
+// channel chunk is one the core does not take (ops/resblock_tail.py::f32_smem).
+// desc_host: per conv (k, dilation, offset), as desc.
+int stage_smem(int batch, int seq, int C, int kc, const int* desc_host, int n_conv, int cin,
+               int kc_in, int taps, int seq_in) {
+  const int bn = tile_n(C);
+  int smem = 0;
+  for (int i = 0; i <= n_conv; ++i) {
+    cc::Geom G;
+    int chunk = kc;
+    if (i < n_conv) {
+      const int k = desc_host[3 * i], d = desc_host[3 * i + 1];
+      if (k < 1 || d < 1) return -1;
+      G = geom(batch, seq, C, C, k, d, (k - 1) * d / 2);
+    } else if (cin > 0) {
+      G = geom(batch, seq_in, cin, C, taps, 1, 0);
+      chunk = kc_in;
     } else {
-      // lrelu(0.01) of the rounded mean, masked, into bufA; then one warp
-      // per output sample: k7 C -> 1 conv, bias, tanh
-      for (int e = threadIdx.x; e < arows * C; e += kThreads) {
-        const int g = t0 - hp + e / C;
-        const float v = (g >= 0 && g < seq) ? lrelu<T>(rnd<T>(accb[e] / n_rb), 0.01f) : 0.f;
-        bufA[e] = from_f<T>(v);
-      }
-      __syncthreads();
-      const T* pw = static_cast<const T*>(a.post_w);
-      const float pb = to_f(static_cast<const T*>(a.post_b)[0]);
-      float* y = static_cast<float*>(a.y) + (long)b * seq;
-      const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-      for (int row = warp; row < tile; row += kThreads / 32) {
-        if (t0 + row >= seq) break;
-        float s = 0.f;
-        for (int idx = lane; idx < (2 * hp + 1) * C; idx += 32)
-          s = fmaf(to_f(bufA[(long)row * C + idx]), to_f(pw[idx]), s);
-        for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
-        if (lane == 0) y[t0 + row] = tanhf(s + pb);
-      }
+      break;
     }
-    __syncthreads();
+    if (!cc::geom_ok(G) || !cc::kc_ok(G, false, true, chunk)) return -1;
+    const cc::WinPlan P = cc::win_plan(G, false, true, kBM, bn, chunk);
+    smem = P.smem > smem ? P.smem : smem;
   }
+  return smem;
 }
 
-template <typename T, int BN>
-int launch(const StageArgs& a, int grid, int smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mrf_stage_kernel<T, BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mrf_stage_kernel<T, BN><<<grid, kThreads, smem_bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
+}  // namespace f32
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -790,58 +745,60 @@ const void* kernel_for(int bn, int cpad) {
 
 extern "C" {
 
-// Shared memory the kernel needs for a stage whose widest conv has
-// max_k taps and a receptive extent (k-1)*d of max_ext rows.
-int hifigan_mrf_stage_smem(int C, int max_k, int max_ext, int* a_floats_out) {
-  const int bn = C >= 64 ? 64 : 32;
-  const int bm = (kThreads / (bn / 4)) * kTM;
-  const int a_floats = ((bm + max_ext) * kAStride + 3) / 4 * 4;
-  *a_floats_out = a_floats;
-  return (a_floats + max_k * kBK * bn) * static_cast<int>(sizeof(float));
-}
-
-// The fp32 SIMT body. Returns the cudaError_t of the launch.
-// With pre_w (the folded upsampler, phase-split taps) x is (B, seq / stride,
-// cin); max_k and max_ext then cover its taps too.
-int hifigan_mrf_stage(const void* x, const void* w, const void* bias,
-                      const int* desc, const void* post_w, const void* post_b,
-                      const void* pre_w, const void* pre_b, void* y,
-                      void* scratch, float* acc, int batch, int seq, int C, int n_rb,
-                      int convs_per_rb, int pair_size, int tile, int halo, int post_halo,
-                      int max_k, int max_ext, int grid, int cin, int stride, int taps,
-                      int pre_pad, void* stream) {
-  if (pre_w != nullptr && (stride < 1 || seq % stride != 0 || taps < 1 || cin < 1 ||
-                           taps > max_k || taps - 1 > max_ext))
+// The fp32 3xTF32 body, launched cooperatively: grid at most the
+// co-resident blocks (else cudaErrorCooperativeLaunchTooLarge). desc_host
+// is a host copy of desc; kc (and with pre_w, kc_in) the channels of a
+// reduction chunk; minb (1 or 2) the blocks an SM the kernel is compiled
+// for; smem must be f32::stage_smem's value. scratch holds
+// (1 + 3 * n_rb + (post_w != null) + (pre_w != null)) planes of
+// f32::plane_floats floats, then with pre_w batch * (seq / stride) * cin
+// more. With pre_w (the folded upsampler's phase-split taps) x is
+// (batch, seq / stride, cin). Returns the cudaError_t of the launch.
+int hifigan_mrf_stage_f32(const void* x, const void* w, const void* bias, const int* desc,
+                          const int* desc_host, const void* post_w, const void* post_b,
+                          const void* pre_w, const void* pre_b, void* y, void* scratch, int batch,
+                          int seq, int C, int n_rb, int convs_per_rb, int pair_size, int kc,
+                          int minb, int grid, int smem, int cin, int kc_in, int stride, int taps,
+                          int pre_pad, void* stream) {
+  const bool pre = pre_w != nullptr;
+  const void* fn = f32::kernel_for(f32::tile_n(C), minb);
+  if (fn == nullptr || C < 1 || batch < 1 || seq < 1 || grid < 1 || n_rb < 1 || convs_per_rb < 1 ||
+      pair_size < 1 || convs_per_rb % pair_size != 0 || desc_host == nullptr ||
+      (pre && (cin < 1 || stride < 1 || seq % stride != 0 || taps < 1)) ||
+      smem != f32::stage_smem(batch, seq, C, kc, desc_host, n_rb * convs_per_rb, pre ? cin : 0,
+                              kc_in, taps, pre ? seq / stride : 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  StageArgs a;
-  a.x = x;
-  a.w = w;
-  a.bias = bias;
+  f32::Args a;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.bias = static_cast<const float*>(bias);
   a.desc = desc;
-  a.post_w = post_w;
-  a.post_b = post_b;
-  a.pre_w = pre_w;
-  a.pre_b = pre_b;
-  a.cin = cin;
-  a.stride = stride;
-  a.taps = taps;
-  a.pre_pad = pre_pad;
-  a.y = y;
-  a.scratch = scratch;
-  a.acc = acc;
+  a.post_w = static_cast<const float*>(post_w);
+  a.post_b = static_cast<const float*>(post_b);
+  a.y = static_cast<float*>(y);
+  a.scratch = static_cast<float*>(scratch);
+  a.pre_w = static_cast<const float*>(pre_w);
+  a.pre_b = static_cast<const float*>(pre_b);
   a.batch = batch;
   a.seq = seq;
   a.C = C;
   a.n_rb = n_rb;
   a.convs_per_rb = convs_per_rb;
   a.pair_size = pair_size;
-  a.tile = tile;
-  a.halo = halo;
-  a.post_halo = post_halo;
-  a.n_tiles = (seq + tile - 1) / tile;
-  const int smem = hifigan_mrf_stage_smem(C, max_k, max_ext, &a.a_floats);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return C >= 64 ? launch<float, 64>(a, grid, smem, s) : launch<float, 32>(a, grid, smem, s);
+  a.kc = kc;
+  a.cin = pre ? cin : 0;
+  a.kc_in = pre ? kc_in : 0;
+  a.stride = pre ? stride : 1;
+  a.taps = pre ? taps : 0;
+  a.pre_pad = pre ? pre_pad : 0;
+  a.seq_in = pre ? seq / stride : 0;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(conv_core::kThreads), params,
+                                    static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"
@@ -867,15 +824,18 @@ static int tc_stage_smem(int C, int max_ext, int cin, int taps) {
   return tc::stage_smem(bn, cpad, kc, max_ext, cpad_in, kc_in, taps);
 }
 
-// Co-resident blocks per SM of the tensor-core kernel for width C at this
+// Co-resident blocks per SM of the bf16 tensor-core kernel (f32_minb 0) or
+// of the fp32 one compiled for f32_minb blocks an SM, for width C at this
 // shared memory.
-int hifigan_mrf_tc_blocks_per_sm(int C, int smem, int* out) {
+int hifigan_mrf_blocks_per_sm(int f32_minb, int C, int smem, int* out) {
   int bn, cpad, kc;
   tc_tiling(C, &bn, &cpad, &kc);
-  const void* fn = tc::kernel_for(bn, cpad);
+  const void* fn = f32_minb ? f32::kernel_for(f32::tile_n(C), f32_minb) : tc::kernel_for(bn, cpad);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = f32_minb ? conv_core::kThreads : tc::kThreads;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, tc::kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, smem);
   return static_cast<int>(err);
 }
 

@@ -39,17 +39,16 @@ def folds_upsampler(h: Any, stage: int) -> bool:
 
 
 def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torch.bfloat16,
-                      device: str | torch.device | None = None, tile: int | None = None,
-                      fold_post: bool = True, fold_up: bool = False):
+                      device: str | torch.device | None = None, fold_post: bool = True,
+                      fold_up: bool = False):
     """(h, folded state_dict) -> fn(mel (B, M, T)) -> wav (B, 1, T * hop) float32.
 
     Weights are packed once onto ``device`` (CUDA unless the caller passes
     another; with no GPU that raises). Every stage's MRF runs in the
     kernel: the JAX package's ``max_fused_ch`` / ``min_fused_stage`` exist
-    for the TPU's VMEM, and the CUDA kernel takes any width. ``tile`` fixes
-    the fp32 body's time tile (default: per call, from the batch and the
-    sequence length, see ``auto_tile``); the bf16 body walks the whole
-    sequence in one cooperative launch per stage and takes no tile.
+    for the TPU's VMEM, and the CUDA kernel takes any width. Each stage is
+    one cooperative launch that walks the whole sequence conv by conv (bf16
+    tensor cores, or 3xTF32 in fp32).
     ``fold_up`` runs the leaky ReLU and the upsampler of the stages
     :func:`folds_upsampler` names inside their kernel launch (off by default,
     as in the JAX package).
@@ -84,8 +83,7 @@ def make_fast_vocoder(h: Any, folded_state_dict: dict, dtype: torch.dtype = torc
                 up_w, up_b = ups[i]
                 x = conv_transpose1d(x, up_w, up_b, stride=u, padding=(k - u) // 2)
             last_post = post_pack if i == num_stages - 1 else None
-            x = fused_tail_stage(x.contiguous(), packed, post_pack=last_post, tile=tile,
-                                 pre_pack=pre)
+            x = fused_tail_stage(x.contiguous(), packed, post_pack=last_post, pre_pack=pre)
         if post_pack is not None:
             return x.transpose(1, 2)  # tail already folded in the kernel
         x = conv1d(leaky_relu(x, 0.01), post_w, post_b, padding=3)

@@ -12,17 +12,19 @@ power, the mel filterbank, log(max(., 1e-5)). Output values match
   windowed basis, power, @ filterbank, log clamp, in fp32.
 - :func:`fused_log_mel` takes the plain version for a CPU tensor; for a
   CUDA tensor the forward launches ``csrc/logmel.cu`` (or raises). The
-  kernel has two bodies, chosen here by ``n_fft`` (:func:`uses_fft`): a
-  power of two up to 2048 (every shipped config) takes the FFT body (an
-  n_fft-point Stockham FFT per pair of frames in shared memory, the
-  twiddles of :func:`fft_tables`, the sparse filterbank of
-  :func:`sparse_filterbank`); any other admitted geometry the dense body
-  (the windowed basis as a product). The reflect pad and the crop to
+  kernel has two bodies, chosen here by the geometry (:func:`uses_fft`):
+  an n_fft = 2^a 3^b 5^c whose buffers fit shared memory (every shipped
+  config's 1024, and e.g. 1200) takes the FFT body (an n_fft-point
+  mixed-radix Stockham FFT per pair of frames in shared memory over the
+  passes of :func:`fft_passes`, the twiddles of :func:`fft_tables`, the
+  sparse filterbank of :func:`sparse_filterbank`); any other admitted
+  geometry (a prime factor above 5, e.g. 1100) the dense body (the
+  windowed basis as a product). The reflect pad and the crop to
   (F + 3) * hop samples stay in PyTorch, as they are XLA ops outside the
   Pallas call in JAX. There is no backward kernel: the backward recomputes
   the plain composition under autograd and pulls the cotangent through it,
   saving only ``y``, as the JAX custom VJP does (``logmel.py:153-162``).
-- ``LAUNCHES`` counts kernel launches.
+- ``LAUNCHES`` counts kernel launches, ``BODY_LAUNCHES`` the same per body.
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ from hifigan_tpu_torch.audio.mel import MelConfig, mel_filterbank
 from hifigan_tpu_torch.audio.stft import hann_window, windowed_rdft_basis
 
 LAUNCHES = 0
+BODY_LAUNCHES = {"fft": 0, "dense": 0}
 LOG_CLIP = 1e-5
-FFT_MAX_N = 2048  # the FFT body's two ping-pong buffers fit shared memory up to here
+FFT_FRAMES = 8  # frames per block of the FFT body (kFftFrames in the source)
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB)
 
 
 def supports_fused_log_mel(cfg: MelConfig) -> bool:
@@ -55,18 +59,37 @@ def _tables(cfg: MelConfig) -> tuple[np.ndarray, np.ndarray]:
     return windowed_rdft_basis(cfg.n_fft, cfg.win_size), fb
 
 
-def uses_fft(cfg: MelConfig) -> bool:
-    """Whether the kernel takes its FFT body (else the dense one): n_fft a
-    power of two in [4, FFT_MAX_N]."""
+def fft_passes(n_fft: int) -> list[int] | None:
+    """The FFT body's radices in pass order (``fft_plan`` in the source):
+    radix 5s, then 3s, then a radix 2 when the power of two is odd, then
+    radix 4s; None unless n_fft = 2^a 3^b 5^c >= 2."""
+    m, odd = n_fft, []
+    for r in (5, 3):
+        while m > 1 and m % r == 0:
+            m //= r
+            odd.append(r)
+    a = 0
+    while m > 1 and m % 2 == 0:
+        m //= 2
+        a += 1
+    if n_fft < 2 or m != 1:
+        return None
+    return odd + [2] * (a % 2) + [4] * (a // 2)
+
+
+def fft_smem_bytes(cfg: MelConfig) -> int:
+    """Shared memory of the FFT body (``fft_smem_floats`` in the source):
+    the tile's (FFT_FRAMES - 1) * hop + n_fft samples, then two ping-pong
+    buffers of FFT_FRAMES / 2 complex n_fft-point sequences."""
     n = cfg.n_fft
-    return 4 <= n <= FFT_MAX_N and n & (n - 1) == 0
+    sig = -(-((FFT_FRAMES - 1) * cfg.hop_size + n) // 4) * 4
+    return 4 * (sig + 2 * (FFT_FRAMES // 2) * n * 2)
 
 
-def fft_passes(n_fft: int) -> list[int]:
-    """The FFT body's radices in pass order: radix 2 first when log2 n_fft
-    is odd, then radix 4."""
-    log2n = n_fft.bit_length() - 1
-    return [2] * (log2n % 2) + [4] * (log2n // 2)
+def uses_fft(cfg: MelConfig) -> bool:
+    """Whether the kernel takes its FFT body (else the dense one): n_fft =
+    2^a 3^b 5^c and the body's buffers within SMEM_LIMIT."""
+    return fft_passes(cfg.n_fft) is not None and fft_smem_bytes(cfg) <= SMEM_LIMIT
 
 
 def sparse_filterbank(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -148,7 +171,7 @@ def _kernels():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         dense, fft = lib.hifigan_logmel, lib.hifigan_logmel_fft
         dense.argtypes = [vp] * 4 + [ci] * 7 + [vp]
-        fft.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+        fft.argtypes = [vp] * 6 + [ci] * 7 + [vp]
         dense.restype = fft.restype = ci
         _KERNELS = {"dense": dense, "fft": fft}
     return _KERNELS
@@ -162,20 +185,22 @@ def _launch(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     n_bins = cfg.n_fft // 2 + 1
     out = torch.empty((y.shape[0], cfg.num_mels, frames), dtype=torch.float32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    if uses_fft(cfg):
+    body = "fft" if uses_fft(cfg) else "dense"
+    if body == "fft":
         window, twiddle, idx, vals = tables
         rc = _kernels()["fft"](yp.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
                                idx.data_ptr(), vals.data_ptr(), out.data_ptr(), y.shape[0],
-                               frames, yp.shape[1], cfg.hop_size, cfg.n_fft, cfg.num_mels, stream)
+                               frames, yp.shape[1], cfg.hop_size, cfg.n_fft, cfg.num_mels,
+                               fft_smem_bytes(cfg), stream)
     else:
         basis, fb = tables
         rc = _kernels()["dense"](yp.data_ptr(), basis.data_ptr(), fb.data_ptr(), out.data_ptr(),
                                  y.shape[0], frames, yp.shape[1], cfg.hop_size, cfg.n_fft,
                                  n_bins, cfg.num_mels, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_log_mel kernel launch failed "
-                           f"({'fft' if uses_fft(cfg) else 'dense'} body): cudaError {rc}")
+        raise RuntimeError(f"fused_log_mel kernel launch failed ({body} body): cudaError {rc}")
     LAUNCHES += 1
+    BODY_LAUNCHES[body] += 1
     return out
 
 

@@ -17,11 +17,12 @@ the working dtype once, so T = T_in * u.
 The kernel (``csrc/resblock_tail.cu``) is bound by arithmetic: a V1 request
 of 256 mel frames at B=1 does about 152 GFLOP of MRF work, and the source
 note there says what the design does about that. It has two bodies, chosen
-by dtype: fp32 keeps a SIMT body over time tiles plus halo (TF32 would
-break the 1e-4 parity); bf16, the served path, runs the convs on the tensor
-cores in one cooperative launch per stage that walks the whole sequence
-conv by conv, a grid-wide barrier between convs and the activations in
-device-memory ping-pong buffers: no halo recompute, every SM busy at B=1.
+by dtype, on one schedule: one cooperative launch per stage that walks the
+whole sequence conv by conv, a grid-wide barrier between convs and the
+activations in device-memory planes (no halo recompute, every SM busy at
+B=1). bf16, the served path, runs the convs on bf16 tensor cores; fp32 on
+the tensor cores as 3xTF32 through the conv core of ``csrc/conv_core.cuh``
+(fp32-class error, each ring stage's sum promoted with IEEE adds).
 :func:`plan_tail_stage` sizes either on the host.
 
 The TPU kernel's time-blocked tables, lane folding and VMEM split heuristic
@@ -45,6 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from hifigan_tpu_torch.ops import conv_stack as cs
 from hifigan_tpu_torch.ops.conv import LRELU_SLOPE, leaky_relu
 
 LAUNCHES = 0
@@ -94,8 +96,6 @@ def prepare_tail_stage(convs: list[list[tuple[torch.Tensor, torch.Tensor, int]]]
         "convs_per_rb": convs_per_rb,
         "pair_size": pair_size,
         "channels": channels,
-        "halo": max(sum(_radius(k, d) for k, d, _ in meta[i:i + convs_per_rb])
-                    for i in range(0, len(meta), convs_per_rb)),
     }
 
 
@@ -224,27 +224,12 @@ def fused_tail_stage_reference(x: torch.Tensor, packed: dict, post_pack: dict | 
     return torch.tanh(wav).transpose(1, 2).contiguous()
 
 
-def auto_tile(batch: int, seq: int, min_items: int = 128) -> int:
-    """Time tile of the fp32 SIMT body: the largest of 256..32 that still
-    gives ``min_items`` work items.
-
-    A larger tile recomputes less halo per output row, more items fill more
-    SMs (one resident block per SM at that body's register count). The
-    default of 128 items was tuned on the H100 (132 SMs): there the largest
-    tile with about one item per SM measured fastest at every V1 stage but
-    stage 0 at B=1, which takes the smallest. It does not read the card.
-    """
-    tile = 256
-    while tile > 32 and batch * -(-seq // tile) < min_items:
-        tile //= 2
-    return tile
-
-
 # The tensor-core body's geometry, as csrc/resblock_tail.cu has it.
 TC_BM = 128          # output rows of a conv tile
 TC_STAGES = 3        # cp.async ring of weight chunks
 TC_PAD = 8           # bf16 elements of padding per shared-memory row
 SMEM_LIMIT = 232448  # shared memory a block may use on the H100 (227 KB)
+SM_SMEM = 233472  # shared memory of an H100 SM, 1 KB of it reserved per resident block
 
 
 def _round_up(v: int, m: int) -> int:
@@ -274,36 +259,107 @@ def tc_smem(c: int, max_ext: int, pre: dict | None = None) -> int:
     return _round_up(window, 8) * 2 + TC_STAGES * kc * (bn + TC_PAD) * 2
 
 
+F32_BM = 128  # output rows of the fp32 body's conv tile (across batch rows)
+
+
+def f32_bn(c: int) -> int:
+    """Output columns of the fp32 body's tile for width ``c`` (``tile_n`` in the source)."""
+    return 16 if c <= 16 else 32 if c <= 32 else 64
+
+
+def f32_convs(packed: dict, batch: int, seq: int, pre: dict | None = None) -> list:
+    """The fp32 body's conv tiles as the conv core sees them: (ConvShape,
+    channel width) of each conv of the stage and, with ``pre``, of the
+    upsampling phase (each output phase a dilation-1 conv of ``taps`` taps
+    over the (B, T_in, C_in) input)."""
+    c = packed["channels"]
+    out = [cs.ConvShape(batch, seq, c, seq, c, k, 1, d, 1, _radius(k, d))
+           for k, d, _ in packed["convs"]]
+    if pre is not None:
+        t_in = seq // pre["stride"]
+        out.append(cs.ConvShape(batch, t_in, pre["c_in"], t_in, c, pre["taps"]))
+    return out
+
+
+def f32_smem(shapes: list, kc: int) -> int:
+    """Shared memory (bytes) the fp32 body's tiles over ``shapes`` (convs of
+    one input width, :func:`f32_convs`) need with reduction chunks of ``kc``
+    channels: the most any needs, by the conv core's forward window plan
+    (``ops/conv_stack.py::win_plan``; ``f32::stage_smem`` in the source)."""
+    bn = f32_bn(shapes[0].c_out)
+    return max(cs.win_plan(g, False, torch.float32, F32_BM, bn, kc)["smem"] for g in shapes)
+
+
+def f32_chunk(shapes: list, limit: int = SMEM_LIMIT) -> int | None:
+    """The reduction chunk of the fp32 body's tiles over ``shapes`` (one
+    input width): the widest of min(C_in rounded up to 8, 64), 32, 16 and 8
+    that every conv takes (the conv core's ``kc_ok``) and whose tiles fit
+    ``limit`` bytes of shared memory; None if none does. A wide chunk stages
+    fewer windows; a narrower one fits a dilated conv's window across batch
+    rows (V3's stage 0 at B > 1) or two blocks an SM."""
+    for kc in sorted({min(_round_up(shapes[0].c_in, 8), 64), 32, 16, 8}, reverse=True):
+        if all(cs.kc_ok(g, False, torch.float32, kc) for g in shapes) and \
+                f32_smem(shapes, kc) <= limit:
+            return kc
+    return None
+
+
+def f32_plane(batch: int, seq: int, c: int) -> int:
+    """Floats of one fp32 scratch plane: B*T*C rounded up to 16 bytes."""
+    return _round_up(batch * seq * c, 4)
+
+
 def plan_tail_stage(packed: dict, batch: int, seq: int, dtype: torch.dtype, post: bool,
-                    sm_count: int, blocks_per_sm, tile: int | None = None,
-                    pre: dict | None = None) -> dict:
+                    sm_count: int, blocks_per_sm, pre: dict | None = None) -> dict:
     """How one stage call runs on the card, decided on the host. ``seq`` is
     the stage's length (T_in * stride with a folded upsampler ``pre``).
 
-    ``blocks_per_sm(channels, smem)`` gives the co-resident blocks per SM
-    (the card's occupancy query in the wrapper). Returns ``body`` ('simt'
-    for fp32, 'tensor_core' for bf16), ``schedule`` ('tiled': time tiles
-    plus halo, or 'cooperative': conv by conv over the whole sequence),
-    ``tile`` (the time tile, or the 128-row conv tile), ``grid``, ``smem``
-    (bytes; None for the SIMT body, which sizes its own), ``items`` (work
-    items, of the busiest phase for the cooperative schedule) and
-    ``scratch`` (elements of device scratch: with ``pre`` one more window
-    per SIMT block, or one more (B, T, C) plane, holds the upsampled x).
-    ``tile`` fixes the SIMT body's.
+    ``blocks_per_sm(channels, smem, f32_minb)`` gives the co-resident
+    blocks per SM of the bf16 kernel (``f32_minb`` 0) or of the fp32 one
+    compiled for ``f32_minb`` blocks an SM (the card's occupancy query in
+    the wrapper). Both bodies run the cooperative schedule (conv by conv
+    over the whole sequence). Returns ``body`` ('3xtf32' for fp32,
+    'tensor_core' for bf16), ``schedule``, ``tile`` (the conv tile's rows),
+    ``bn`` (its columns), ``kc`` (input channels per weight chunk; fp32: per
+    reduction chunk, ``kc_in`` the upsampling phase's, ``minb`` the blocks
+    an SM its kernel is compiled for), ``grid``, ``smem`` (bytes), ``items``
+    (work items of the busiest phase) and ``scratch`` (elements of device
+    scratch: activation planes, with ``pre`` one more for the upsampled x;
+    fp32 also a plane of lrelu(x), two activated planes a resblock and,
+    with ``pre``, the lrelu'd input).
     """
     c = packed["channels"]
-    hp = (_POST_K - 1) // 2 if post else 0
     if pre is not None and (pre["channels"] != c or seq % pre["stride"]):
         raise ValueError(f"pre_pack gives {pre['channels']} channels at stride {pre['stride']}; "
                          f"the stage has {c} channels and {seq} rows")
     if dtype == torch.float32:
-        tile = tile or auto_tile(batch, seq)
-        items = batch * -(-seq // tile)
-        grid = min(items, 2 * sm_count)
-        bufs = 2 if pre is None else 3
-        return {"body": "simt", "schedule": "tiled", "tile": tile, "grid": grid, "smem": None,
-                "items": items,
-                "scratch": grid * bufs * (tile + 2 * (packed["halo"] + hp)) * c}
+        bn = f32_bn(c)
+        n_tiles = -(-c // bn)
+        items = packed["n_rb"] * -(-batch * seq // F32_BM) * n_tiles
+        planes = 1 + 3 * packed["n_rb"] + (1 if post else 0)
+        scratch = planes * f32_plane(batch, seq, c)
+        if pre is not None:
+            t_in = seq // pre["stride"]
+            items = max(items, pre["stride"] * -(-batch * t_in // F32_BM) * n_tiles)
+            scratch += f32_plane(batch, seq, c) + batch * t_in * pre["c_in"]
+        shapes = f32_convs(packed, batch, seq, pre)
+        mrf, up = shapes[:len(packed["convs"])], shapes[len(packed["convs"]):]
+        # two blocks an SM where the busiest phase has two tiles for each SM
+        # and a chunk fits both blocks' shared memory, else one
+        for minb in (2, 1) if items >= 2 * sm_count else (1,):
+            limit = SMEM_LIMIT if minb == 1 else SM_SMEM // 2 - 1024
+            kc = f32_chunk(mrf, limit)
+            kc_in = f32_chunk(up, limit) if up else 0
+            if kc is not None and kc_in is not None:
+                break
+        else:
+            raise ValueError(f"the fp32 body cannot take the convs of {shapes[0]} in "
+                             f"{SMEM_LIMIT} bytes of shared memory")
+        smem = max(f32_smem(mrf, kc), f32_smem(up, kc_in) if up else 0)
+        grid = min(items, blocks_per_sm(c, smem, minb) * sm_count)
+        return {"body": "3xtf32", "schedule": "cooperative", "tile": F32_BM, "bn": bn, "kc": kc,
+                "kc_in": kc_in, "minb": minb, "grid": grid, "smem": smem, "items": items,
+                "scratch": scratch}
     if c % 8 or (pre is not None and pre["c_in"] % 8):
         raise ValueError(f"the bf16 body takes widths that are multiples of 8, got {c}"
                          + ("" if pre is None else f" from {pre['c_in']}"))
@@ -312,14 +368,16 @@ def plan_tail_stage(packed: dict, batch: int, seq: int, dtype: torch.dtype, post
     if smem > SMEM_LIMIT:
         raise ValueError(f"the bf16 body needs {smem} bytes of shared memory at C={c}, more "
                          f"than {SMEM_LIMIT}")
-    n_tiles = -(-c // tc_tiling(c)[0])
+    bn = tc_tiling(c)[0]
+    n_tiles = -(-c // bn)
     items = packed["n_rb"] * batch * -(-seq // TC_BM) * n_tiles
     if pre is not None:  # the upsampling phase: one item per output phase and input tile
         items = max(items, pre["stride"] * batch * -(-(seq // pre["stride"]) // TC_BM) * n_tiles)
-    grid = min(items, blocks_per_sm(c, smem) * sm_count)
+    grid = min(items, blocks_per_sm(c, smem, 0) * sm_count)
     planes = 2 * packed["n_rb"] + (1 if post else 0) + (1 if pre is not None else 0)
-    return {"body": "tensor_core", "schedule": "cooperative", "tile": TC_BM, "grid": grid,
-            "smem": smem, "items": items, "scratch": planes * batch * seq * c}
+    return {"body": "tensor_core", "schedule": "cooperative", "tile": TC_BM, "bn": bn,
+            "kc": tc_tiling(c)[2], "grid": grid, "smem": smem, "items": items,
+            "scratch": planes * batch * seq * c}
 
 
 _KERNELS = None  # the ctypes entries of csrc/resblock_tail.cu, their signatures set once
@@ -332,16 +390,16 @@ def _kernels():
 
         lib = _build.load("resblock_tail")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        simt = lib.hifigan_mrf_stage
-        simt.restype = ci
-        simt.argtypes = [vp] * 11 + [ci] * 16 + [vp]
+        f32 = lib.hifigan_mrf_stage_f32
+        f32.restype = ci
+        f32.argtypes = [vp] * 4 + [ctypes.POINTER(ci)] + [vp] * 6 + [ci] * 15 + [vp]
         tc = lib.hifigan_mrf_stage_tc
         tc.restype = ci
         tc.argtypes = [vp] * 10 + [ci] * 13 + [vp]
-        occ = lib.hifigan_mrf_tc_blocks_per_sm
+        occ = lib.hifigan_mrf_blocks_per_sm
         occ.restype = ci
-        occ.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        _KERNELS = {"simt": simt, "tc": tc, "occupancy": occ}
+        occ.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        _KERNELS = {"f32": f32, "tc": tc, "occupancy": occ}
     return _KERNELS
 
 
@@ -351,10 +409,10 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(device_index: int, c: int, smem: int) -> int:
+def _blocks_per_sm(device_index: int, c: int, smem: int, f32_minb: int) -> int:
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = _kernels()["occupancy"](c, smem, ctypes.byref(out))
+        rc = _kernels()["occupancy"](f32_minb, c, smem, ctypes.byref(out))
     if rc != 0 or out.value < 1:
         raise RuntimeError(f"fused_tail_stage: occupancy query failed (cudaError {rc}, "
                            f"{out.value} blocks per SM at {smem} bytes of shared memory)")
@@ -386,16 +444,20 @@ def _check(x: torch.Tensor, packed: dict, post_pack: dict | None,
         raise ValueError("packed descriptors must be on x's device")
 
 
+@functools.lru_cache(maxsize=256)
+def _desc_host(convs: tuple) -> ctypes.Array:
+    """A host copy of the packed descriptors (k, dilation, offset per conv)."""
+    return (ctypes.c_int * (3 * len(convs)))(*(v for conv in convs for v in conv))
+
+
 def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = None,
-                     tile: int | None = None, pre_pack: dict | None = None) -> torch.Tensor:
+                     pre_pack: dict | None = None) -> torch.Tensor:
     """x (B, T, C) -> the stage's MRF output (B, T, C), or (B, T, 1) float32 with post_pack.
 
     With ``pre_pack`` x is the previous stage's output (B, T_in, C_in) and
     the stage's leaky ReLU and upsampler run first, in the same launch; then
     T = T_in * stride. A CPU tensor takes :func:`fused_tail_stage_reference`;
-    a CUDA tensor launches the kernel (or raises). ``tile`` fixes the fp32
-    body's time tile (default :func:`auto_tile`); the bf16 body walks the
-    whole sequence.
+    a CUDA tensor launches the kernel (or raises).
     """
     global LAUNCHES
     if x.device.type == "cpu":
@@ -410,15 +472,11 @@ def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = Non
     t = t_in * stride
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
     plan = plan_tail_stage(packed, b, t, x.dtype, post_pack is not None, _sm_count(dev),
-                           functools.partial(_blocks_per_sm, dev), tile=tile, pre=pre_pack)
-    hp = (_POST_K - 1) // 2 if post_pack is not None else 0
-    halo = packed["halo"] + hp
+                           functools.partial(_blocks_per_sm, dev), pre=pre_pack)
     if post_pack is not None:
         y = torch.empty((b, t, 1), dtype=torch.float32, device=x.device)
     else:
         y = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
-    max_k = max(k for k, _, _ in packed["convs"])
-    max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
 
     def ptr(pack, key):
         return pack[key].data_ptr() if pack is not None else None
@@ -430,18 +488,17 @@ def fused_tail_stage(x: torch.Tensor, packed: dict, post_pack: dict | None = Non
     scratch = torch.empty(plan["scratch"], dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan["body"] == "simt":
-            acc = torch.empty(plan["grid"] * (plan["tile"] + 2 * hp) * c, dtype=torch.float32,
-                              device=x.device)
-            taps = pre[2]
-            rc = kernels["simt"](
+        if plan["body"] == "3xtf32":
+            rc = kernels["f32"](
                 x.data_ptr(), packed["w"].data_ptr(), packed["bias"].data_ptr(),
-                packed["desc"].data_ptr(), ptr(post_pack, "w"), ptr(post_pack, "bias"),
-                ptr(pre_pack, "w"), ptr(pre_pack, "bias"), y.data_ptr(), scratch.data_ptr(),
-                acc.data_ptr(), b, t, c, packed["n_rb"], packed["convs_per_rb"],
-                packed["pair_size"], plan["tile"], halo, hp, max(max_k, taps),
-                max(max_ext, taps - 1), plan["grid"], *pre, stream)
+                packed["desc"].data_ptr(), _desc_host(tuple(packed["convs"])),
+                ptr(post_pack, "w"), ptr(post_pack, "bias"), ptr(pre_pack, "w"),
+                ptr(pre_pack, "bias"), y.data_ptr(), scratch.data_ptr(), b, t, c,
+                packed["n_rb"], packed["convs_per_rb"], packed["pair_size"], plan["kc"],
+                plan["minb"], plan["grid"], plan["smem"], pre[0], plan["kc_in"], *pre[1:],
+                stream)
         else:
+            max_ext = max((k - 1) * d for k, d, _ in packed["convs"])
             rc = kernels["tc"](
                 x.data_ptr(), packed["w"].data_ptr(), packed["bias"].data_ptr(),
                 packed["desc"].data_ptr(), ptr(post_pack, "w"), ptr(post_pack, "bias"),

@@ -36,8 +36,8 @@ def test_library_path_follows_every_included_header(tmp_path):
 
 
 def test_the_conv_kernels_hash_the_shared_core():
-    for name in ("conv_stack", "msd_conv"):
+    for name in ("conv_stack", "msd_conv", "resblock_tail", "logmel"):
         assert [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")] == [
             f"{name}.cu", "conv_core.cuh"]
-    assert [p.name for p in _build._sources(_build.CSRC / "resblock_tail.cu")] == [
-        "resblock_tail.cu"]
+    assert [p.name for p in _build._sources(_build.CSRC / "stream_graph.cu")] == [
+        "stream_graph.cu"]

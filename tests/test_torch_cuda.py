@@ -40,21 +40,27 @@ def no_tf32():
 
 
 @requires_cuda
-@pytest.mark.parametrize("resblock,stage,post,seq,tile", [
-    ("1", 0, False, 1000, None),   # C=128: 64-wide column tiles
-    ("1", 2, True, 777, 64),       # C=32: 32-wide column tiles, post folded, ragged last tile
-    ("2", 2, True, 300, 32),       # ResBlock2 chain, C=32, post folded
+@pytest.mark.parametrize("resblock,stage,post,seq,batch", [
+    ("1", 0, False, 1000, 2),  # C=128: 64-column tiles, two 64-channel chunks
+    ("1", 2, True, 777, 3),    # C=32: 32-column tiles, post folded, tiles across batch rows
+    ("2", 2, True, 300, 1),    # ResBlock2 chain, C=32, post folded
+    ("1", 0, True, 259, 3),    # one stage of C=12 (set below): padded to a 16-channel chunk
 ])
-def test_kernel_matches_plain_fp32(no_tf32, resblock, stage, post, seq, tile):
+def test_kernel_matches_plain_fp32(no_tf32, resblock, stage, post, seq, batch):
+    """The fp32 body (3xTF32 on the tensor cores, one cooperative launch per
+    stage) against its plain version within 1e-4, as chip_smoke.py holds it."""
     h = _config(resblock, 256)
-    sd = _state(h)
     ch = 256 // (2 ** (stage + 1))
+    if (stage, post) == (0, True):
+        h.update(upsample_rates=[2], upsample_kernel_sizes=[4], upsample_initial_channel=24)
+        ch = 12
+    sd = _state(h)
     packed = ttail.pack_generator_tail(h, sd, stage, device="cuda")
     post_pack = ttail.prepare_post(sd, device="cuda") if post else None
     g = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((2, seq, ch), device="cuda", generator=g) * 0.3
+    x = torch.randn((batch, seq, ch), device="cuda", generator=g) * 0.3
     launches = ttail.LAUNCHES
-    got = ttail.fused_tail_stage(x, packed, post_pack=post_pack, tile=tile)
+    got = ttail.fused_tail_stage(x, packed, post_pack=post_pack)
     torch.cuda.synchronize()
     assert ttail.LAUNCHES == launches + 1
     ref = ttail.fused_tail_stage_reference(x, packed, post_pack)
@@ -99,7 +105,7 @@ def test_kernel_matches_plain_bf16(card, no_tf32, name, stage, post, seq, batch)
     ("v1", 3, True, 777, 1, torch.bfloat16),     # C=32 from 64, post conv folded
     ("v2", 2, False, 259, 3, torch.bfloat16),    # C=16 from 32
     ("v2", 3, True, 130, 1, torch.bfloat16),     # C=8 from 16: output padded to 16
-    ("v1", 2, False, 300, 2, torch.float32),     # the SIMT body
+    ("v1", 2, False, 300, 2, torch.float32),     # the 3xTF32 body: C=64 from 128
     ("v1", 3, True, 257, 1, torch.float32),
 ])
 def test_kernel_with_pre_pack_matches_plain(card, no_tf32, name, stage, post, t_in, batch, dtype):
@@ -532,21 +538,21 @@ def test_log_mel_fft_body_radix2_sizes_match_plain(card, no_tf32, n_fft):
     assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
 
 
-def test_log_mel_dense_body_matches_plain(card, no_tf32):
-    """A geometry whose n_fft is not a power of two (1200 / 300) keeps the
-    dense-DFT body: forward and gradient against the plain version."""
+def _log_mel_body_matches_plain(card, n_fft: int, body: str):
+    """The body ``body`` at n_fft / n_fft // 4: one launch of it, forward and
+    gradient against the plain version."""
     from hifigan_tpu_torch.audio.mel import MelConfig
     from hifigan_tpu_torch.ops import logmel as tlogmel
 
-    cfg = MelConfig(n_fft=1200, win_size=1200, hop_size=300)
-    assert tlogmel.supports_fused_log_mel(cfg) and not tlogmel.uses_fft(cfg)
+    cfg = MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+    assert tlogmel.supports_fused_log_mel(cfg)
     y = (torch.randn((3, 9000), device=card, generator=torch.Generator(device=card).manual_seed(3))
          * 0.3).clamp(-1, 1)
-    launches = tlogmel.LAUNCHES
+    launches = dict(tlogmel.BODY_LAUNCHES)
     yk = y.clone().requires_grad_()
     got = tlogmel.fused_log_mel(yk, cfg)
     torch.cuda.synchronize()
-    assert tlogmel.LAUNCHES == launches + 1
+    assert tlogmel.BODY_LAUNCHES == dict(launches, **{body: launches[body] + 1})
     yp = y.clone().requires_grad_()
     want = tlogmel.fused_log_mel_reference(yp, cfg)
     assert got.shape == want.shape and got.dtype == torch.float32
@@ -554,6 +560,20 @@ def test_log_mel_dense_body_matches_plain(card, no_tf32):
     (gk,) = torch.autograd.grad(torch.sin(got).sum(), yk)
     (gp,) = torch.autograd.grad(torch.sin(want).sum(), yp)
     assert (gk - gp).abs().max().item() <= 1e-4 * gp.abs().max().item()
+
+
+def test_log_mel_dense_body_matches_plain(card, no_tf32):
+    """A geometry whose n_fft has a prime factor above 5 (1100 / 275) keeps
+    the dense-DFT body: forward and gradient against the plain version."""
+    _log_mel_body_matches_plain(card, 1100, "dense")
+
+
+@pytest.mark.parametrize("n_fft", [1200, 960, 800])
+def test_log_mel_mixed_radix_body_matches_plain(card, no_tf32, n_fft):
+    """n_fft = 2^a 3^b 5^c that is not a power of two takes the FFT body's
+    radix-3 and radix-5 passes: forward and gradient against the plain
+    version."""
+    _log_mel_body_matches_plain(card, n_fft, "fft")
 
 
 @pytest.mark.parametrize("n,t,c,k,s,p", [(6, 14560, 12, 31, 1, 15), (4, 8192, 1, 4, 2, 2),

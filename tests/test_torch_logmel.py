@@ -100,13 +100,36 @@ def test_cuda_backward_recomputes_the_plain_composition():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+C3 = np.float32(0.866025403784438647)  # sin(2 pi / 3), the kernel's constant
+C5 = [np.float32(v) for v in (0.309016994374947424, -0.809016994374947424)]  # cos(2 pi k / 5)
+S5 = [np.float32(v) for v in (0.951056516295153572, 0.587785252292473129)]  # sin(2 pi k / 5)
+
+
+def _butterfly(v):
+    """The kernel's 2-, 3-, 4- and 5-point DFTs with constant rotations."""
+    if len(v) == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if len(v) == 3:
+        t1, t2 = v[1] + v[2], -1j * (v[1] - v[2]) * C3
+        m = v[0] - t1 * np.float32(0.5)
+        return [v[0] + t1, m + t2, m - t2]
+    if len(v) == 4:
+        a, b, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
+        return [a + c, b - 1j * d, a - c, b + 1j * d]
+    t1, t2 = v[1] + v[4], v[2] + v[3]
+    t3, t4 = -1j * (v[1] - v[4]), -1j * (v[2] - v[3])
+    a1, a2 = v[0] + C5[0] * t1 + C5[1] * t2, v[0] + C5[1] * t1 + C5[0] * t2
+    b1, b2 = S5[0] * t3 + S5[1] * t4, S5[1] * t3 - S5[0] * t4
+    return [v[0] + (t1 + t2), a1 + b1, a2 + b2, a2 - b2, a1 - b1]
+
+
 def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
     """The kernel's FFT body in numpy complex64: frames 2q and 2q+1
-    windowed into one complex sequence, the Stockham passes of
+    windowed into one complex sequence, the mixed-radix Stockham passes of
     ``fft_passes`` (butterfly j reads j + r n/R, twiddles by the table's
-    entry r (j % ns) n/(ns R), writes (j - j % ns) R + j % ns + r ns), the
-    real split into both frames' power, the sparse filterbank, the log
-    clamp. Returns (B, mels, F)."""
+    entry r (j % ns) n/(ns R), writes (j // ns) ns R + j % ns + r ns), the
+    real split into both frames' power (Z[(n - k) mod n]), the sparse
+    filterbank, the log clamp. Returns (B, mels, F)."""
     window, twiddle, idx, vals = tlogmel.fft_tables(cfg)
     tw = (twiddle[:, 0] + 1j * twiddle[:, 1]).astype(np.complex64)
     yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
@@ -119,17 +142,17 @@ def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
     for radix in tlogmel.fft_passes(n):
         j = np.arange(n // radix)
         jm = j % ns
-        v = [src[..., j + r * (n // radix)] * tw[r * jm * (n // (ns * radix))]
-             for r in range(radix)]
-        if radix == 2:
-            out = [v[0] + v[1], v[0] - v[1]]
-        else:
-            a, b, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
-            out = [a + c, b - 1j * d, a - c, b + 1j * d]
-        dst = np.empty_like(src)
+        r_step = (n // radix) // ns
+        assert r_step * ns * radix == n  # the pass's table step is an integer
+        v = [src[..., j + r * (n // radix)] * tw[r * jm * r_step] for r in range(radix)]
+        assert all(int((r * jm * r_step).max()) < n for r in range(radix))
+        out = _butterfly(v)
+        dst = np.full_like(src, np.nan)
         for r in range(radix):
-            dst[..., (j - jm) * radix + jm + r * ns] = out[r]
+            dst[..., (j // ns) * ns * radix + jm + r * ns] = out[r]
+        assert not np.isnan(dst).any()  # the pass writes every element once
         src, ns = dst, ns * radix
+    assert ns == n
     k = np.arange(n // 2 + 1)
     zk, zn = src[..., k], src[..., (n - k) % n]
     pa = 0.25 * ((zk.real + zn.real) ** 2 + (zk.imag - zn.imag) ** 2)
@@ -140,25 +163,32 @@ def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
     return np.log(np.maximum(mel, tlogmel.LOG_CLIP)).astype(np.float32)
 
 
-def test_fft_body_emulation_matches_the_pallas_kernel_in_interpret_mode():
+@pytest.mark.parametrize("n_fft", [1024, 1200])
+def test_fft_body_emulation_matches_the_pallas_kernel_in_interpret_mode(n_fft):
     """The FFT body's arithmetic against the JAX kernel (interpret mode) at
-    the V1 geometry, within that test's 2e-4 + 1e-4 |ref|."""
-    y = _wave(1, 2048 + 113, 4)
-    want = np.asarray(jax_fused_log_mel(jnp.asarray(y), JAX_MATMUL, interpret=True))
-    got = _emulate_fft_body(y, tmel.MelConfig())
+    the V1 geometry and at n_fft 1200 / hop 300 (radix 5, 5, 3, 4, 4),
+    within that test's 2e-4 + 1e-4 |ref|."""
+    geometry = dict(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+    y = _wave(1, 2 * n_fft + 113, 4)
+    want = np.asarray(jax_fused_log_mel(jnp.asarray(y), dataclasses.replace(JAX_MATMUL, **geometry),
+                                        interpret=True))
+    got = _emulate_fft_body(y, tmel.MelConfig(**geometry))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+PASSES = {512: [2, 4, 4, 4, 4], 1024: [4] * 5, 2048: [2] + [4] * 5, 1200: [5, 5, 3, 4, 4],
+          960: [5, 3, 4, 4, 4], 800: [5, 5, 2, 4, 4], 1536: [3, 2, 4, 4, 4, 4]}
+
+
+@pytest.mark.parametrize("n_fft", list(PASSES))
 def test_fft_body_emulation_matches_rfft(n_fft):
-    """Radix 2 then 4 (512, 2048) or radix 4 only (1024), an odd frame
-    count: the emulated log-mel against rfft's power through the dense
-    filterbank, within 2e-4 + 1e-4 |ref|."""
+    """Each pass plan (radix 2 then 4; radix 4 only; radix 5 and 3 first),
+    an odd frame count: the emulated log-mel against rfft's power through
+    the dense filterbank, within 2e-4 + 1e-4 |ref|."""
     cfg = tmel.MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
     assert tlogmel.uses_fft(cfg)
-    assert tlogmel.fft_passes(n_fft) == {512: [2, 4, 4, 4, 4], 1024: [4] * 5,
-                                         2048: [2] + [4] * 5}[n_fft]
+    assert tlogmel.fft_passes(n_fft) == PASSES[n_fft]
     y = _wave(2, 7 * n_fft // 4 + 37, n_fft)
     yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
     assert frames % 2 == 1
@@ -167,6 +197,28 @@ def test_fft_body_emulation_matches_rfft(n_fft):
     fb = torch.from_numpy(tlogmel._tables(cfg)[1]).double()
     want = torch.log(torch.clamp(spec.abs() ** 2 @ fb, min=tlogmel.LOG_CLIP)).transpose(1, 2)
     np.testing.assert_allclose(_emulate_fft_body(y, cfg), want.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("radix", [2, 3, 4, 5])
+def test_butterflies_are_the_dft(radix):
+    """Each butterfly with its constant rotations is the radix-point DFT."""
+    v = np.random.default_rng(radix).standard_normal((2, radix, 6)).astype(np.float32)
+    z = (v[0] + 1j * v[1]).astype(np.complex64)
+    got = np.stack(_butterfly(list(z)))
+    np.testing.assert_allclose(got, np.fft.fft(z, axis=0), atol=1e-5, rtol=0)
+
+
+def test_fft_plan_and_shared_memory():
+    """The pass plan of n_fft = 2^a 3^b 5^c and the body's shared memory in
+    bytes: the signal tile and two buffers of 4 complex sequences (76.8 KB
+    at n_fft 1200); no plan for another prime factor."""
+    assert tlogmel.fft_passes(1100) is None and tlogmel.fft_passes(7 * 64) is None
+    assert tlogmel.fft_passes(1) is None and tlogmel.fft_passes(4) == [4]
+    cfg = tmel.MelConfig(n_fft=1200, win_size=1200, hop_size=300)
+    assert tlogmel.fft_smem_bytes(cfg) == 4 * (7 * 300 + 1200) + 2 * 4 * 1200 * 8 == 90000
+    big = tmel.MelConfig(n_fft=3200, win_size=3200, hop_size=800)  # 2^7 5^2: buffers too large
+    assert tlogmel.fft_passes(3200) is not None and not tlogmel.uses_fft(big)
+    assert tlogmel.fft_smem_bytes(big) > tlogmel.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("mel_scale,norm", [("htk", None), ("slaney", "slaney")])
@@ -185,10 +237,13 @@ def test_sparse_filterbank_rebuilds_the_dense_one(mel_scale, norm):
 
 
 def test_body_choice_follows_n_fft():
-    """A power-of-two n_fft up to 2048 takes the FFT body; any other
-    geometry the gate admits keeps the dense one."""
+    """n_fft = 2^a 3^b 5^c whose buffers fit shared memory takes the FFT
+    body (1024, 1200, 2048); any other geometry the gate admits keeps the
+    dense one (1100 = 2^2 5^2 11; 4096, whose buffers do not fit)."""
     assert tlogmel.uses_fft(tmel.MelConfig())
     assert tlogmel.uses_fft(tmel.MelConfig(n_fft=2048, win_size=2048, hop_size=512))
-    dense = tmel.MelConfig(n_fft=1200, win_size=1200, hop_size=300)
+    mixed = tmel.MelConfig(n_fft=1200, win_size=1200, hop_size=300)
+    assert tlogmel.supports_fused_log_mel(mixed) and tlogmel.uses_fft(mixed)
+    dense = tmel.MelConfig(n_fft=1100, win_size=1100, hop_size=275)
     assert tlogmel.supports_fused_log_mel(dense) and not tlogmel.uses_fft(dense)
     assert not tlogmel.uses_fft(tmel.MelConfig(n_fft=4096, win_size=4096, hop_size=1024))
