@@ -138,7 +138,36 @@ into the git-ignored ``build/kernels``), then:
    (a factor 11: the dense body), each counted per body, and prints kernel,
    plain and cuFFT times, the bound of the work a log-mel needs (a real FFT
    per frame) and that of the dense-DFT algorithm;
-14. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+14. serves the distillation autoencoder (``configs/distill.json``, full
+   width, fp32, TF32 off, seeded weights): writes an experiment directory
+   with the port's writers (``config.yaml`` with ``models.stream_impl``
+   'fused', another with 'auto'; ``checkpoints/latest`` as flax msgpack of
+   ``{"step", "variables": {encoder, decoder}}``; three synthetic 10 s, 16
+   kHz wavs), runs ``python -m hifigan_tpu_torch.cli.infer_autoencoding
+   --device cuda`` on both (cuDNN's TF32 off through NVIDIA_TF32_OVERRIDE),
+   checks each wav's length (159,978 samples), finiteness and range and the
+   fused files within FP32_TOL of the 'auto' files' peak plus one int16
+   step; then in process, with the count set to 0 just before and read just
+   after, autoencodes the three clips through ``cli.autoencode`` (one
+   stream-graph forward launch a fused run: 6 a clip), holds them within
+   FP32_TOL of 'auto', prints the runs the pass forms, holds every run's
+   segment against its plain version at B=1 and B=3 and prints ms a clip
+   (fused and 'auto' timed in turn, the real-time factor), the segments'
+   kernel and plain ms, the interpreter's cuDNN chain over the same runs
+   and the bound;
+15. runs distillation steps as in phase 9 with ``models.stream_impl``
+   'fused': launches per step against the members' count plus two
+   encoder and two decoder calls' fused runs a pass, step 1 (losses,
+   gradients, parameters) against ``stream_impl='auto'``, and every run's
+   segment of one encoder + decoder pass at the step's batch (forward, dx,
+   dW, db) against the plain versions over the kernel's own outputs, with
+   their times; prints ms per step and the idle share of a profiled step;
+16. runs the validation eval step (``make_eval_step``, 3 x 109,200) with
+   stream_impl 'fused' and 'auto' on the same state: finite trees of the
+   right shapes, losses within DISTILL_REL_TOL, the live discriminator's
+   state unchanged; then two ``LabelBiasSnifferTrainer`` steps and an eval
+   step on the card (finite losses, every parameter moving);
+17. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
 
 Any failed check raises: the script then exits non-zero and prints no ok
@@ -149,6 +178,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1202,26 +1232,64 @@ def record_segments(disc, wav: torch.Tensor) -> list:
     return rec
 
 
-def segment_cost(seg, batch: int, members: int, esize: int, n_bias: int) -> dict:
-    """FLOP of one pass and the bytes each pass must move: every input read
-    once, every output written once (dx and dW repeat the forward's
-    multiply-adds)."""
-    flop = sum(2 * batch * seg.levels[op.out].t * e.kernel * e.c_in * seg.levels[op.out].c
-               for op in seg.ops for e in op.edges)
+def table_work(table: torch.Tensor) -> tuple[float, float]:
+    """(operations an output row, entries read) of one edge's table
+    (members, K, c_in, c_out), counted from its data, a member's average.
+    An output channel whose nonzero entries all share one value (the id,
+    neg, pool, repl and avg tables) is a sum: an add per entry, and one
+    multiply unless that value is +-1. Any other channel is a multiply-add
+    (2 operations) per nonzero entry. Only nonzero entries are read."""
+    t = table.detach().float().flatten(1, 2)
+    nz = t != 0
+    cnt = nz.sum(1)
+    hi = torch.where(nz, t, -math.inf).amax(1)
+    lo = torch.where(nz, t, math.inf).amin(1)
+    ops = torch.where(hi == lo, cnt + (hi.abs() != 1).long(), 2 * cnt)
+    return ops.sum().item() / t.shape[0], cnt.sum().item() / t.shape[0]
+
+
+def segment_cost(seg, tables, biases, batch: int, members: int, esize: int, dw_mask) -> dict:
+    """Operations and bytes of each pass of a segment, counted from its
+    tables' data (:func:`table_work`). Forward: each edge's table over its
+    op's output rows; dx: its transpose, as many; dW: a multiply-add per
+    entry of each table in ``dw_mask`` and output row, an add per output of
+    a biased op for db. Bytes: every input read once, every output written
+    once (fwd: x, tables, biases -> ys; dx: ys, dys, tables -> dxs; dW: x,
+    ys, dys -> the masked tables' dW, db)."""
+    fwd = tab = dw = 0.0
+    for (oi, _e), table, want in zip(seg.edges, tables, dw_mask):
+        rows = batch * seg.levels[seg.ops[oi].out].t
+        ops, read = table_work(table)
+        fwd += rows * ops
+        tab += members * read * esize
+        if want:
+            dw += 2 * rows * table[0].numel()
+    n_bias = sum(b.numel() for b in biases if b is not None)
+    dw += sum(batch * seg.levels[op.out].size for op, b in zip(seg.ops, biases) if b is not None)
     ins = sum(lvl.size for lvl in seg.levels if lvl.is_input) * batch * esize
     outs = sum(lvl.size for lvl in seg.levels if not lvl.is_input) * batch * esize
-    w = sum(members * e.kernel * e.c_in * seg.levels[op.out].c
-            for op in seg.ops for e in op.edges) * esize + n_bias * 4
-    # fwd: x, W, b -> ys; dx: ys, dys, W -> dxs; dW: x, ys, dys -> dW, db
-    return {"flop": flop, "fwd": ins + w + outs, "bwd_dx": 2 * outs + w + ins,
-            "bwd_dw": ins + 2 * outs + w}
+    dw_bytes = sum(t.numel() for t, want in zip(tables, dw_mask) if want) * esize + n_bias * 4
+    return {"ops": {"fwd": fwd, "bwd_dx": fwd, "bwd_dw": dw},
+            "bytes": {"fwd": ins + tab + n_bias * 4 + outs, "bwd_dx": 2 * outs + tab + ins,
+                      "bwd_dw": ins + 2 * outs + dw_bytes}}
 
 
-def time_segment(sg, seg, ins, tabs, bs, m, dys) -> dict:
+def segment_bound(cost, kind: str) -> tuple[float, str]:
+    """(ms, what bounds it) of pass ``kind`` over a segment's cost, or the
+    sum of a list of costs: operations at B3's fp32 SIMT rate or bytes at
+    the memory rate, the larger."""
+    costs = cost if isinstance(cost, list) else [cost]
+    ops_ms = sum(c["ops"][kind] for c in costs) / H100_FP32_FLOPS * 1e3
+    bytes_ms = sum(c["bytes"][kind] for c in costs) / H100_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def time_segment(sg, seg, ins, tabs, bs, m, dys, dw_mask) -> dict:
     """CUDA-event times of one pass of kernel and plain version over a
     segment (mean of 5 after a warm-up): the dx launch differentiating every
-    input and no weight; the dW launch over every weight, on the cotangents
-    of a full dx launch (which also sets them up: the dW time excludes it)."""
+    input and no weight; the dW launch over the tables of ``dw_mask`` and
+    every bias, on the cotangents of a full dx launch (which also sets them
+    up: the dW time excludes it)."""
     reps = 5
     n_in, n_tab, n_ops = len(ins), len(tabs), len(seg.ops)
     with torch.no_grad():
@@ -1230,7 +1298,7 @@ def time_segment(sg, seg, ins, tabs, bs, m, dys) -> dict:
         ys = sg.fused_stream_graph(seg, ins, tabs, bs, members=m)
         plan_dx = tuple(sg.backward_plan(seg, [True] * n_in, [False] * n_tab, [False] * n_ops,
                                          [True] * len(ys)))
-        full = tuple(sg.backward_plan(seg, [True] * n_in, [True] * n_tab,
+        full = tuple(sg.backward_plan(seg, [True] * n_in, list(dw_mask),
                                       [b is not None for b in bs], [True] * len(ys)))
         plan_dw = [None if g is None else sg.OpGrad((), g.dw, g.db) for g in full]
         da, _ = sg._dx_cuda(seg, full, ins, ys, dys, tabs, m)
@@ -1341,19 +1409,19 @@ def stream_graph_phase(models, dev) -> dict:
                 else:
                     check(all(not g.any() for g in got), f"{tag}: weight_grads=False gave dW != 0")
             if dtype == torch.float32:
-                row = time_segment(sg, seg, ins_d, tabs_d, bs, m, dys)
-                row["cost"] = segment_cost(seg, ins_d[0].shape[0], m, 4,
-                                           sum(b.numel() for b in bs if b is not None))
+                # phase 8 times dW over every table, the mel branch's constants too
+                every = [True] * len(tabs_d)
+                row = time_segment(sg, seg, ins_d, tabs_d, bs, m, dys, every)
+                row["cost"] = c = segment_cost(seg, tabs_d, bs, ins_d[0].shape[0], m, 4, every)
                 rows.append(row)
-                c = row["cost"]
                 print(f"stream graph {tag} B={ins_d[0].shape[0]}: "
                       + "; ".join(f"{k} kernel {row['ms'][k]:.3f} ms "
                                   f"plain {row['plain_ms'][k]:.3f} ms "
-                                  f"({c['flop'] / max(row['ms'][k], 1e-6) / 1e9:.2f} TFLOP/s)"
-                                  for k in ("fwd", "bwd_dx", "bwd_dw"))
-                      + f"; {c['flop'] / 1e9:.2f} GFLOP a pass, bound "
-                      + ", ".join(f"{k} {max(c['flop'] / H100_FP32_FLOPS, c[k] / H100_BYTES_PER_S) * 1e3:.4f} ms"
-                                  for k in ("fwd", "bwd_dx", "bwd_dw")))
+                                  f"({c['ops'][k] / max(row['ms'][k], 1e-6) / 1e9:.2f} "
+                                  "TFLOP/s)" for k in ("fwd", "bwd_dx", "bwd_dw"))
+                      + "; GFLOP " + ", ".join(f"{k} {c['ops'][k] / 1e9:.3f}" for k in c["ops"])
+                      + "; bound " + ", ".join(f"{k} {segment_bound(c, k)[0]:.4f} ms"
+                                               for k in ("fwd", "bwd_dx", "bwd_dw")))
             print(f"stream graph {tag}: every level, and dx/dW/db for all, "
                   f"weight_grads=False, weights only held; one launch a pass; two backward "
                   f"runs bit-identical")
@@ -1578,19 +1646,14 @@ class jittered_convs:
         ConfigurableModule._conv_node = self.real
 
 
-class stream_graph_host_clock:
-    """Within the block, the host seconds spent in the stream-graph wrapper
-    as the fused member calls it (the forward launch and everything before
-    it, each call with the new Segment the member builds) and in its dx and
-    dW launch functions, summed by pass into ``self.s``."""
+class host_clock:
+    """Within the block, the host seconds spent in each function of
+    ``spots`` ({key: (module, attribute)}, called through that module's
+    name), summed by key into ``self.s``."""
 
-    def __init__(self):
-        from hifigan_tpu_torch.dsl import fused_member as fm
-        from hifigan_tpu_torch.ops import stream_graph as sg
-
-        self.s = {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}
-        self.spots = {"fwd": (fm, "fused_stream_graph"), "bwd_dx": (sg, "_dx_cuda"),
-                      "bwd_dw": (sg, "_dw_cuda")}
+    def __init__(self, spots: dict):
+        self.s = {k: 0.0 for k in spots}
+        self.spots = spots
         self.real = {k: getattr(mod, name) for k, (mod, name) in self.spots.items()}
 
     def __enter__(self):
@@ -1608,6 +1671,31 @@ class stream_graph_host_clock:
     def __exit__(self, *exc):
         for k, (mod, name) in self.spots.items():
             setattr(mod, name, self.real[k])
+
+
+def stream_graph_host_clock() -> host_clock:
+    """The host time in the stream-graph wrapper as the fused member and
+    the stream-fusion pass call it (the forward launch and everything
+    before it, each call with the new Segment they build) and in its dx and
+    dW launch functions, by pass."""
+    from hifigan_tpu_torch.dsl import fused_member as fm
+    from hifigan_tpu_torch.ops import stream_graph as sg
+
+    return host_clock({"fwd": (fm, "fused_stream_graph"), "bwd_dx": (sg, "_dx_cuda"),
+                       "bwd_dw": (sg, "_dw_cuda")})
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host time of one call of ``fn`` (returning before the card
+    finishes), the card idle at each start."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(out))
 
 
 def profile_step(step, state, batch, step_ms: float, what: str):
@@ -1654,12 +1742,17 @@ def flat_losses(tree, prefix="") -> dict:
     return {prefix: float(tree)}
 
 
-def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
-    """Phases 9 and 12: production distillation train steps through the
+def distill_phase(config: dict, dev, conv_impl: str = "auto", stream_impl: str = "auto",
+                  keep_state: bool = False) -> dict:
+    """Phases 9, 12 and 15: production distillation train steps through the
     port's main path, with the DSL's ``conv_impl`` ``'auto'`` (step 1 held
     against the interpreted members) or ``'pallas'`` (every conv node of the
     generator and classifiers through the per-layer conv kernels; step 1
-    held against ``'auto'``)."""
+    held against ``'auto'``), or with ``models.stream_impl`` ``'fused'``
+    (the encoder's and decoder's narrow runs through the stream-graph
+    kernels; step 1 held against ``'auto'``, and the runs' segments'
+    backward against the plain backward). ``keep_state`` returns the state
+    (key ``state``)."""
     from hifigan_tpu_torch.distill.train import DistillTrainer
     from hifigan_tpu_torch.ops import msd_conv
     from hifigan_tpu_torch.ops import stream_graph as sg
@@ -1667,7 +1760,9 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
 
     cfg = copy.deepcopy(config)
     cfg["learning"]["accumulated_grad_batches"] = 1
-    print(f"distill conv_impl={conv_impl!r}: configs/distill.json as shipped but "
+    cfg["models"]["stream_impl"] = stream_impl
+    what = f"conv_impl={conv_impl!r}" if stream_impl == "auto" else f"stream_impl={stream_impl!r}"
+    print(f"distill {what}: configs/distill.json as shipped but "
           "accumulated_grad_batches 1 instead of 100 (an in-memory copy), so each of the "
           f"{DISTILL_STEPS} steps applies an update")
     models = distill_models(cfg, dev, conv_impl=conv_impl)
@@ -1686,9 +1781,15 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
 
     # the reference: the same step with the members interpreted (conv_impl
     # 'auto') or with the default conv path ('pallas')
-    ref_name = "member_impl='interpret'" if conv_impl == "auto" else "conv_impl='auto'"
-    interp = (distill_models(cfg, dev, member_impl="interpret") if conv_impl == "auto"
-              else distill_models(cfg, dev))
+    if stream_impl != "auto":
+        ref_name = "stream_impl='auto'"
+        interp = distill_models(dict(cfg, models=dict(cfg["models"], stream_impl="auto")), dev)
+    elif conv_impl == "auto":
+        ref_name = "member_impl='interpret'"
+        interp = distill_models(cfg, dev, member_impl="interpret")
+    else:
+        ref_name = "conv_impl='auto'"
+        interp = distill_models(cfg, dev)
     interp.build(seg_len, seed=SEED)
     start = distill_state_dicts(models)
     load_distill_variables(interp, start)
@@ -1709,6 +1810,17 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
 
     n_blocks = len(cfg["models"]["discriminator"]["layers"]) - 2
     per_step = distill_launches_per_step(n_blocks)
+    gen_runs = 0
+    if stream_impl != "auto":
+        # each pass runs every fused run of the two encoder and two decoder calls
+        x0 = torch.from_numpy(batches[0]["audio"]).to(dev)[:, :, None]
+        enc, dec = generator_runs(models, x0)
+        gen_runs = len(enc) + len(dec)
+        check(gen_runs == STREAM_RUNS_SHIPPED,
+              f"{gen_runs} fused runs at the step's batch, {STREAM_RUNS_SHIPPED} expected")
+        per_step = {k: v + 2 * STREAM_RUNS_SHIPPED for k, v in per_step.items()}
+        print(f"distill {what}: {len(enc)} + {len(dec)} fused runs an autoencode, so "
+              f"{2 * STREAM_RUNS_SHIPPED} more stream-graph launches a step and pass")
     msd_per_step = (distill_msd_launches_per_step(models, seg_len) if conv_impl == "pallas"
                     else {"fwd": 0, "bwd_dx": 0})
     before = {g: [p.detach().clone() for p in opt.params] for g, opt in state.optimizers.items()}
@@ -1761,26 +1873,26 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
           f"{[bufs[k].tolist() for k in spec0 if k.endswith('weight_u')]}, every v moved")
     rel = {k: abs(history[0][k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
     worst = max(rel, key=rel.get)
-    print(f"distill step 1 total, conv_impl={conv_impl!r} {history[0]['/total']:.6f}, "
+    print(f"distill step 1 total, {what} {history[0]['/total']:.6f}, "
           f"{ref_name} {ref['/total']:.6f}; worst relative difference over {len(rel)} losses "
           f"{rel[worst]:.3e} at {worst} (limit {DISTILL_REL_TOL})")
     check(rel[worst] <= DISTILL_REL_TOL,
-          f"distill step 1 conv_impl={conv_impl!r} vs {ref_name}: {worst} {rel[worst]}")
+          f"distill step 1 {what} vs {ref_name}: {worst} {rel[worst]}")
     upd = held_update(leaf_names, trainer.flat_groups, before, after_1, ref_after)
     floor = held_update(leaf_names, trainer.flat_groups, before, jit_after, ref_after)
     del after_1, ref_after, jit_after
-    print(update_line(f"distill step 1, conv_impl={conv_impl!r} vs {ref_name}", upd))
+    print(update_line(f"distill step 1, {what} vs {ref_name}", upd))
     print(update_line(f"distill step 1, {ref_name} with its conv outputs jittered by {JITTER:g} "
                       f"vs {ref_name} (the noise floor)", floor))
     check(upd["leaves"] == len(ids), f"{upd['leaves']} leaves held of {len(ids)} parameters")
     check(upd["grad_rel"] <= STEP_GRAD_TOL,
-          f"distill step 1 gradients, conv_impl={conv_impl!r} vs {ref_name}: "
+          f"distill step 1 gradients, {what} vs {ref_name}: "
           f"{upd['grad_leaf']} {upd['grad_rel']} > {STEP_GRAD_TOL}")
     check(upd["update_rel"] <= STEP_UPDATE_TOL,
-          f"distill step 1 parameters, conv_impl={conv_impl!r} vs {ref_name}: "
+          f"distill step 1 parameters, {what} vs {ref_name}: "
           f"{upd['update_group']} {upd['update_rel']} > {STEP_UPDATE_TOL}")
     ms = float(np.median(step_ms[2:]))
-    print(f"distill conv_impl={conv_impl!r} B={bsz}x{seg_len} fp32 (TF32 off): step ms "
+    print(f"distill {what} B={bsz}x{seg_len} fp32 (TF32 off): step ms "
           f"{[round(t, 3) for t in step_ms]}, median of steps 3-{DISTILL_STEPS}: {ms:.3f} ms "
           f"({bsz * seg_len / cfg['sampling_rate'] / ms * 1e3:.2f}x real time); stream-graph "
           f"launches per step {per_step}; per-layer conv launches per step {msd_per_step}; "
@@ -1793,11 +1905,15 @@ def distill_phase(config: dict, dev, conv_impl: str = "auto") -> dict:
     out = {"step_ms": ms, "launches": launches, "per_step": per_step, "rel": rel[worst],
            "sg_host_ms": host,
            "msd_launches": msd_launches, "msd_per_step": msd_per_step, "update": upd,
-           "update_floor": floor}
+           "update_floor": floor, "gen_runs": gen_runs}
+    if stream_impl != "auto":
+        out["segments"] = hold_generator_backward(models, batches[0])
 
-    state, share = profile_step(step, state, batches[DISTILL_STEPS], ms,
-                                f"conv_impl={conv_impl!r}")
-    return dict(out, share=share)
+    state, share = profile_step(step, state, batches[DISTILL_STEPS], ms, what)
+    out["share"] = share
+    if keep_state:
+        out["state"], out["trainer"], out["batches"] = state, trainer, batches
+    return out
 
 
 def conv_cost(x: torch.Tensor, k: int, ci_g: int, y: torch.Tensor) -> dict:
@@ -2228,7 +2344,495 @@ def fp32_tail_entries(mrf: dict, pre: dict, serve32: dict, stream: dict, pre_err
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the autoencoder's serving path, training through the
+# stream-fusion pass, the eval and sniffer steps
+# ---------------------------------------------------------------------------
+
+AUTOENCODE_SECONDS = 10  # each served clip, at the config's 16 kHz
+AUTOENCODE_CLIPS = 3
+AUTOENCODE_REPS = 5  # timed autoencodes of each path, in turn
+STREAM_RUNS_SHIPPED = 6  # fused runs an autoencode of configs/distill.json (3 + 3)
+PCM_STEP = 1.0 / 32767  # the int16 wav's quantisation step
+
+
+def generator_runs(models, wav: torch.Tensor) -> tuple[list, list]:
+    """The fused runs of one autoencode: (encoder's, decoder's), each
+    [(entry value, run, atoms)]."""
+    from hifigan_tpu_torch.dsl import stream_fusion as sf
+
+    enc, dec = [], []
+    with torch.no_grad():
+        emb, _ = sf.eval_stream_fused(models.encoder, models.encoder.config, wav, "m", enc)
+        sf.eval_stream_fused(models.decoder, models.decoder.config, emb, "m", dec)
+    return enc, dec
+
+
+def describe_run(run) -> str:
+    ops = []
+    for op in run.ops:
+        kinds = "+".join(f"{k}{p[0] if k in ('pool', 'repl') else ''}" for _s, k, p in op.srcs)
+        text = (kinds or "act") + (" +res" if op.res_from is not None else "")
+        ops.append(text + (f" ->{op.act}" if op.act != "none" else ""))
+    return f"c {run.entry_c}: " + ", ".join(ops) + f" ({run.n_convs} convs)"
+
+
+def hold_segment(sg, seg, ins, tabs, bs, tag: str, gen, errs: dict, backward: bool) -> list:
+    """One segment (members 1, fp32) on the card against its plain version:
+    every level; with ``backward``, dx, dW and db for every input, table and
+    bias, against the plain backward over the kernel's own outputs. Returns
+    the forward's outputs."""
+
+    def held(what, got, want, kind):
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{tag} {what}: {tuple(got.shape)} vs {tuple(want.shape)} or non-finite")
+        check(err <= FP32_TOL * max(peak, 1e-30),
+              f"{tag} {what}: error {err} > {FP32_TOL} * {peak}")
+        errs[kind] = max(errs[kind], err)
+
+    with torch.no_grad():
+        ys = sg.fused_stream_graph(seg, ins, tabs, bs)
+        plain = sg.fused_stream_graph_reference(seg, ins, tabs, bs)
+    for li, (yk, yp) in enumerate(zip(ys, plain)):
+        held(f"level {li}", yk, yp, "fwd")
+    if not backward:
+        return ys
+    dys = [torch.randn(y.shape, device=y.device, generator=gen) * 0.01 for y in ys]
+    xs = [x.clone().requires_grad_() for x in ins]
+    tt = [t.clone().requires_grad_(t.requires_grad) for t in tabs]
+    bb = [None if b is None else b.clone().requires_grad_() for b in bs]
+    outs = sg.fused_stream_graph(seg, xs, tt, bb)
+    wrt = xs + [t for t in tt if t.requires_grad] + [b for b in bb if b is not None]
+    got = list(torch.autograd.grad(outs, wrt, dys))
+    dxs, dws, dbs = sg.fused_stream_graph_backward_reference(
+        seg, ins, [o.detach() for o in outs], dys, tabs, 1, dx_mask=[True] * len(xs),
+        dw_mask=[t.requires_grad for t in tt], db_mask=[b is not None for b in bs])
+    for i in range(len(xs)):
+        held(f"dx{i}", got.pop(0), dxs[i], "bwd_dx")
+    for i, t in enumerate(tt):
+        if t.requires_grad:
+            held(f"dW{i}", got.pop(0), dws[i], "bwd_dw")
+    for gb, rb in zip(got, [d for d, b in zip(dbs, bs) if b is not None]):
+        held("db", gb, rb, "bwd_dw")
+    return ys
+
+
+def generator_segments(models, wav: torch.Tensor, grad: bool) -> list:
+    """Every stream-graph call of one encoder + decoder pass (the fused
+    runs): (segment, inputs, tables, biases), tables keeping whether they
+    take a gradient (conv weights do, constant tables do not)."""
+    from hifigan_tpu_torch.dsl import fused_member as fm
+
+    rec, real = [], fm.fused_stream_graph
+
+    def spy(seg, inputs, tables, biases, members=1, weight_grads=True):
+        rec.append((seg, [x.detach() for x in inputs],
+                    [t.detach().contiguous().requires_grad_(grad and t.requires_grad)
+                     for t in tables],
+                    [None if b is None else b.detach().float().contiguous() for b in biases]))
+        return real(seg, inputs, tables, biases, members=members, weight_grads=weight_grads)
+
+    fm.fused_stream_graph = spy
+    try:
+        with torch.set_grad_enabled(grad):
+            models.decoder(models.encoder(wav))
+    finally:
+        fm.fused_stream_graph = real
+    return rec
+
+
+def hold_generator_backward(models, batch: dict) -> dict:
+    """Phase 15: every fused run's segment of one encoder + decoder pass at
+    the step's batch, forward, dx and dW + db on the card against the plain
+    versions (fp32), and each pass's kernel and plain times."""
+    from hifigan_tpu_torch.ops import stream_graph as sg
+
+    dev = models.device
+    wav = torch.from_numpy(batch["audio"]).to(dev)[:, :, None]
+    segs = generator_segments(models, wav, grad=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    errs = {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}
+    rows = []
+    for si, (seg, ins, tabs, bs) in enumerate(segs):
+        tag = f"stream-fusion segment {si} ({len(seg.ops)} ops, B={ins[0].shape[0]})"
+        ys = hold_segment(sg, seg, ins, tabs, bs, tag, gen, errs, backward=True)
+        dys = [torch.randn(y.shape, device=dev, generator=gen) * 0.01 for y in ys]
+        # dW as the step runs it: the conv tables only (the constant ones take no grad)
+        trained = [t.requires_grad for t in tabs]
+        row = time_segment(sg, seg, ins, [t.detach() for t in tabs], bs, 1, dys, trained)
+        row["cost"] = segment_cost(seg, tabs, bs, ins[0].shape[0], 1, 4, trained)
+        rows.append(row)
+    enc, dec = generator_runs(models, wav)
+    lib = {k: a + b for (k, a), b in zip(interp_chain_grad_ms(models.encoder, enc, 3).items(),
+                                         interp_chain_grad_ms(models.decoder, dec, 3).values())}
+    print(f"stream-fusion segments of one encoder + decoder pass at B={wav.shape[0]} x "
+          f"{wav.shape[1]}: {len(segs)} held (every level, dx, dW, db within {FP32_TOL} of the "
+          f"peak; errors {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}); "
+          + "; ".join(f"{k} kernel {sum(r['ms'][k] for r in rows):.3f} ms plain "
+                      f"{sum(r['plain_ms'][k] for r in rows):.3f} ms, the interpreter's cuDNN "
+                      f"chain {lib[k]:.3f} ms" for k in ("fwd", "bwd_dx", "bwd_dw")))
+    return {"errs": errs, "rows": rows, "n": len(segs), "library_ms": lib}
+
+
+def interp_chain_grad_ms(module, runs: list, reps: int) -> dict:
+    """The interpreter's per-node chain over the same runs (cuDNN convs),
+    CUDA events: forward, dx (parameters frozen) and dW (the backward with
+    the parameters' gradients, minus dx)."""
+    xs = [x.detach().clone().requires_grad_() for x, _run, _atoms in runs]
+
+    def outs():
+        res = []
+        for x, (_x, _run, atoms) in zip(xs, runs):
+            val = x
+            for cfg, path in atoms:
+                val, _ = module._eval(cfg, (val,), path)
+            res.append(val)
+        return res
+
+    with torch.no_grad():
+        fwd = time_ms(outs, reps)
+    module.requires_grad_(False)
+    ys = outs()
+    cot = [torch.ones_like(y) for y in ys]
+    dx = time_ms(lambda: torch.autograd.grad(ys, xs, cot, retain_graph=True), reps)
+    module.requires_grad_(True)
+    ys = outs()
+    wrt = xs + list(module.parameters())
+    full = time_ms(lambda: torch.autograd.grad(ys, wrt, cot, retain_graph=True, allow_unused=True),
+                   reps)
+    return {"fwd": fwd, "bwd_dx": dx, "bwd_dw": full - dx}
+
+
+def interp_chain_ms(module, runs: list, reps: int) -> tuple[float, float]:
+    """The interpreter's cuDNN chain over the same runs (each run's atoms
+    from its entry value, node by node): (CUDA-event ms, host ms)."""
+
+    def chain():
+        for x, _run, atoms in runs:
+            val = x
+            for cfg, path in atoms:
+                val, _ = module._eval(cfg, (val,), path)
+
+    with torch.no_grad():
+        return time_ms(chain, reps), host_ms(chain, reps)
+
+
+def autoencode_phase(config: dict, dev) -> dict:
+    """Phase 14: the distillation autoencoder served on the card through its
+    CLI from an experiment directory the port writes, with
+    ``models.stream_impl`` 'fused' and 'auto'; then in process the runs,
+    each new segment against its plain version, launches and times."""
+    from hifigan_tpu_torch.audio import load_wav, save_wav
+    from hifigan_tpu_torch.cli import infer_autoencoding as cli
+    from hifigan_tpu_torch.dsl import fused_member as fm
+    from hifigan_tpu_torch.dsl import stream_fusion as sf
+    from hifigan_tpu_torch.ops import stream_graph as sg
+    from hifigan_tpu_torch.train.checkpoint import dsl_variables_to_jax
+    from hifigan_tpu_torch.train.msgpack import msgpack_serialize
+    from hifigan_tpu_torch.utils.caching import dump_yaml
+
+    sr = config["sampling_rate"]
+    n_samples = AUTOENCODE_SECONDS * sr
+    base = distill_models(config, torch.device("cpu"))
+    seg = base.embedding_size
+    trimmed = (n_samples // seg) * seg
+    gen = torch.Generator().manual_seed(SEED + 60)
+    probe = torch.zeros((1, seg, 1))
+    base.encoder.build(probe, generator=gen)
+    with torch.no_grad():
+        base.decoder.build(base.encoder(probe), generator=gen)
+    variables = {"encoder": dsl_variables_to_jax(base.encoder.state_dict()),
+                 "decoder": dsl_variables_to_jax(base.decoder.state_dict())}
+    n_params = sum(p.numel() for m in (base.encoder, base.decoder) for p in m.parameters())
+    del base
+    clips = synthetic_audio(AUTOENCODE_CLIPS, n_samples, sr, SEED + 61)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "wavs").mkdir()
+        for i, clip in enumerate(clips):
+            save_wav(str(tmp / "wavs" / f"clip{i}.wav"), clip, sr)
+        blob = msgpack_serialize({"step": 0, "variables": variables})
+        files = {}
+        for impl in ("fused", "auto"):
+            exp = tmp / f"exp_{impl}"
+            (exp / "checkpoints").mkdir(parents=True)
+            cfg = copy.deepcopy(config)
+            cfg["models"]["stream_impl"] = impl
+            (exp / "config.yaml").write_text(dump_yaml(cfg))
+            (exp / "checkpoints" / "latest").write_bytes(blob)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "hifigan_tpu_torch.cli.infer_autoencoding",
+                 "--experiment_dir", str(exp), "--input_wavs_dir", str(tmp / "wavs"),
+                 "--output_dir", str(tmp / f"out_{impl}"), "--device", dev.type],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+                env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))  # fp32 in cuDNN too
+            check(proc.returncode == 0, f"infer_autoencoding ({impl}) exit {proc.returncode}:\n"
+                                        f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            names = sorted(os.listdir(tmp / f"out_{impl}"))
+            check(names == [f"clip{i}_autoencoded.wav" for i in range(AUTOENCODE_CLIPS)],
+                  f"infer_autoencoding ({impl}) wrote {names}")
+            files[impl] = []
+            for name in names:
+                data, out_sr = load_wav(str(tmp / f"out_{impl}" / name))
+                check(out_sr == sr and data.shape == (1, trimmed),
+                      f"{impl} {name}: {data.shape} @ {out_sr}, expected (1, {trimmed}) @ {sr}")
+                check(bool(np.isfinite(data).all()) and float(np.abs(data).max()) <= 1.0
+                      and float(np.abs(data).max()) > 0, f"{impl} {name}: silent or out of range")
+                files[impl].append(data)
+            said = proc.stdout.strip().splitlines()
+            print(f"cli infer_autoencoding stream_impl={impl!r}: {len(names)} wavs of {trimmed} "
+                  f"samples @ {sr} Hz in {time.perf_counter() - t0:.3f} s (process included); "
+                  f"{said[1] if len(said) > 1 else ''}")
+        for i, (a, b) in enumerate(zip(files["fused"], files["auto"])):
+            peak = float(np.abs(b).max())
+            err = float(np.abs(a - b).max())
+            tol = FP32_TOL * peak + PCM_STEP
+            print(f"cli clip {i}: fused vs auto max_abs_err {err:.3e} (tol {tol:.3e}: "
+                  f"{FP32_TOL} of the peak {peak:.4f} plus one int16 step)")
+            check(err <= tol, f"cli clip {i}: fused vs auto {err} > {tol}")
+        fused, _ = cli.load_autoencoder(str(tmp / "exp_fused"), dev)
+        plain, _ = cli.load_autoencoder(str(tmp / "exp_auto"), dev)
+    check(fused.encoder.stream_impl == "fused" and plain.encoder.stream_impl == "auto",
+          "the experiment configs' stream_impl did not reach the encoder")
+
+    # the main path's run: every clip autoencoded as the CLI does, counted
+    sg.reset_launches()
+    outs = [cli.autoencode(fused, clip) for clip in clips]
+    torch.cuda.synchronize()
+    launches = sg.launches()
+    refs = [cli.autoencode(plain, clip) for clip in clips]
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        err, peak = float(np.abs(a - b).max()), float(np.abs(b).max())
+        check(a.shape == (trimmed,) and bool(np.isfinite(a).all()), f"clip {i}: {a.shape}")
+        check(err <= FP32_TOL * peak, f"clip {i}: fused vs auto {err} > {FP32_TOL} * {peak}")
+        out.setdefault("errs_out", []).append(err)
+    x1 = torch.from_numpy(clips[:1, :trimmed]).to(dev)[:, :, None]
+    enc, dec = generator_runs(fused, x1)
+    derived = len(enc) + len(dec)
+    for model, runs in (("encoder", enc), ("decoder", dec)):
+        for i, (x, run, _atoms) in enumerate(runs):
+            print(f"stream-fusion {model} run {i}: entry {tuple(x.shape)}, {describe_run(run)}")
+    check(derived == STREAM_RUNS_SHIPPED,
+          f"{derived} fused runs an autoencode, {STREAM_RUNS_SHIPPED} expected")
+    want = {"fwd": derived * AUTOENCODE_CLIPS, "bwd_dx": 0, "bwd_dw": 0}
+    check(launches == want, f"stream-graph launches over {AUTOENCODE_CLIPS} autoencodes "
+                            f"{launches}, derived {want}")
+    print(f"autoencode: {AUTOENCODE_CLIPS} clips of {trimmed} samples through cli.autoencode, "
+          f"stream-graph launches {launches} ({derived} a clip, derived from the runs); "
+          f"encoder + decoder {n_params / 1e6:.3f} M parameters; fused vs auto max_abs_err "
+          f"{max(out['errs_out']):.3e}")
+
+    errs = {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}
+    gen_d = torch.Generator(device=dev).manual_seed(SEED + 62)
+    per_batch = {}
+    for b in (1, AUTOENCODE_CLIPS):
+        x = torch.from_numpy(clips[:b, :trimmed]).to(dev)[:, :, None]
+        segs = generator_segments(fused, x, grad=False)
+        check(len(segs) == derived, f"B={b}: {len(segs)} segments, {derived} runs")
+        kern = plain_ms = 0.0
+        costs = []
+        for si, (seg_, ins, tabs, bs) in enumerate(segs):
+            hold_segment(sg, seg_, ins, tabs, bs, f"autoencode B={b} segment {si}", gen_d, errs,
+                         backward=False)
+            with torch.no_grad():
+                kern += time_ms(lambda: sg.fused_stream_graph(seg_, ins, tabs, bs), AUTOENCODE_REPS)
+                plain_ms += time_ms(lambda: sg.fused_stream_graph_reference(seg_, ins, tabs, bs),
+                                    AUTOENCODE_REPS)
+            costs.append(segment_cost(seg_, tabs, bs, b, 1, 4, [False] * len(tabs)))
+        bound, bound_by = segment_bound(costs, "fwd")
+        flop = sum(c["ops"]["fwd"] for c in costs)
+        enc_r, dec_r = generator_runs(fused, x)
+        chains = [interp_chain_ms(plain.encoder, enc_r, AUTOENCODE_REPS),
+                  interp_chain_ms(plain.decoder, dec_r, AUTOENCODE_REPS)]
+        lib, lib_host = (sum(c[i] for c in chains) for i in (0, 1))
+        times = {"fused": [], "auto": []}
+        enqueue = {"fused": [], "auto": []}
+        with torch.no_grad():
+            for _ in range(AUTOENCODE_REPS):
+                for impl, m in (("fused", fused), ("auto", plain)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m.decoder(m.encoder(x))
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    times[impl].append((time.perf_counter() - t0) * 1e3)
+                    enqueue[impl].append((t1 - t0) * 1e3)
+            # where the fused autoencode's host time goes
+            clock = host_clock({"runs": (sf, "run_fused"), "b3": (fm, "fused_stream_graph")})
+            with clock:
+                for _ in range(AUTOENCODE_REPS):
+                    torch.cuda.synchronize()
+                    fused.decoder(fused.encoder(x))
+            torch.cuda.synchronize()
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        host = {k: float(np.median(v)) for k, v in enqueue.items()}
+        runs_host, b3_host = (clock.s[k] * 1e3 / AUTOENCODE_REPS for k in ("runs", "b3"))
+        audio_s = b * trimmed / sr
+        per_batch[b] = {"ms": kern, "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bound,
+                        "bound_by": bound_by, "flop": flop, "autoencode_ms": ms,
+                        "host_ms": {"autoencode": host, "fused_runs": runs_host,
+                                    "fused_b3_wrapper": b3_host, "interpreter_chain": lib_host}}
+        print(f"autoencode B={b} x {trimmed}: {ms['fused'] / b:.3f} ms a clip with "
+              f"stream_impl='fused' ({audio_s / (ms['fused'] / 1e3):.1f}x real time), "
+              f"{ms['auto'] / b:.3f} with 'auto' ({audio_s / (ms['auto'] / 1e3):.1f}x), "
+              f"median of {AUTOENCODE_REPS} in turn; the {derived} stream-graph segments: kernel "
+              f"{kern:.3f} ms, plain {plain_ms:.3f} ms, the interpreter's cuDNN chain over the "
+              f"same runs {lib:.3f} ms, {flop / 1e9:.3f} GFLOP, bound {bound:.4f} ms ({bound_by})")
+        print(f"autoencode B={b} host: {host['fused']:.3f} ms to enqueue an autoencode fused, "
+              f"{host['auto']:.3f} auto (median of {AUTOENCODE_REPS}, the card idle at the "
+              f"start); fused, its {derived} runs {runs_host:.3f} ms of it (the stream-graph "
+              f"wrapper and launch {b3_host:.3f}, the rest the lowering, weight norms and "
+              f"tables); the interpreter's chain over the same atoms {lib_host:.3f} ms")
+    print(f"autoencode segments held against the plain version (every level within "
+          f"{FP32_TOL} of the peak): max_abs_err {errs['fwd']:.3e}")
+    del fused, plain
+    return {"launches": launches["fwd"], "per_autoencode": derived, "errs": errs,
+            "per_batch": per_batch, "n_params": n_params}
+
+
+def eval_sniffer_phase(run: dict, config: dict, dev) -> dict:
+    """Phase 16: one validation eval step at (3, 109,200) with stream_impl
+    'fused' and again 'auto' on the same state; two sniffer train steps and
+    an eval step on the card."""
+    from hifigan_tpu_torch.distill.sniffer import (
+        LabelBiasSnifferTrainer,
+        generate_sniffers_by_example,
+    )
+    from hifigan_tpu_torch.distill.train import DistillTrainer
+    from hifigan_tpu_torch.dsl.parsing import parse_layers
+
+    state = run["state"]
+    models = state.models
+    cfg = copy.deepcopy(config)
+    cfg["models"]["stream_impl"] = "fused"
+    trainer = DistillTrainer(models, cfg, loop_type="validation")
+    bsz, seg_len = trainer.batch_size, trainer.segment_length
+    t_emb = seg_len // models.embedding_size
+    rng = np.random.default_rng(SEED + 80)
+    batch = {"audio": synthetic_audio(bsz, seg_len, cfg["sampling_rate"], SEED + 81),
+             "time_labels": {g: {k: rng.integers(0, len(v), (bsz, t_emb))
+                                 for k, v in group.items()} for g, group in DISTILL_LABELS.items()}}
+    eval_step = trainer.make_eval_step()
+    bufs = {k: v.clone() for k, v in models.discriminator.named_buffers()}
+    results = {}
+    for impl in ("fused", "auto"):
+        models.encoder.stream_impl = models.decoder.stream_impl = impl
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, data = eval_step(state, batch)
+        torch.cuda.synchronize()
+        results[impl] = (flat_losses(losses), data, (time.perf_counter() - t0) * 1e3)
+    models.encoder.stream_impl = models.decoder.stream_impl = "fused"
+    live = dict(models.discriminator.named_buffers())
+    check(all(torch.equal(v, live[k]) for k, v in bufs.items()),
+          "the eval step changed the live discriminator's state")
+    (lf, data, ms_f), (la, data_a, ms_a) = results["fused"], results["auto"]
+    check(all(np.isfinite(v) for v in lf.values()), "eval step: non-finite losses")
+    rel = {k: abs(lf[k] - v) / max(abs(v), 1e-30) for k, v in la.items()}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= DISTILL_REL_TOL, f"eval step fused vs auto: {worst} {rel[worst]}")
+    shapes = {"wav": (bsz, seg_len, 1)}
+    for k in ("truth", "generated"):
+        check(tuple(data["wav"][k].shape) == shapes["wav"], f"eval wav {k}: "
+                                                            f"{tuple(data['wav'][k].shape)}")
+        check(data["mel"][k].shape == data_a["mel"][k].shape and data["mel"][k].shape[0] == bsz
+              and data["mel"][k].shape[1] == cfg["mel"]["num_mels"], f"eval mel {k}")
+    leaves = [data["wav"]["generated"], data["mel"]["generated"]]
+    for part in ("keep", "sniff", "hunt"):
+        check(bool(data["label"][part]), f"eval label {part} is empty")
+        for v in data["label"][part].values():
+            leaves += list(v.values()) if isinstance(v, dict) else [v]
+    check(all(bool(torch.isfinite(v).all()) for v in leaves), "eval step: non-finite data")
+    keeps = data["label"]["keep"]
+    check(set(keeps) == set(DISTILL_LABELS)
+          and all(set(keeps[g]) == set(DISTILL_LABELS[g])
+                  and all(tuple(v.shape) == (bsz, t_emb, len(DISTILL_LABELS[g][k]))
+                          for k, v in keeps[g].items()) for g in keeps),
+          "eval keep tree shapes")
+    print(f"eval step B={bsz} x {seg_len}: {ms_f:.3f} ms fused, {ms_a:.3f} ms auto (one call "
+          f"each); losses fused vs auto worst relative {rel[worst]:.3e} at {worst} (limit "
+          f"{DISTILL_REL_TOL}); wav, mel and label trees finite with their shapes; the live "
+          "discriminator's buffers unchanged")
+
+    sniffers = generate_sniffers_by_example(
+        DISTILL_LABELS, layers=parse_layers(cfg["models"]["sniffers"]["layers"]))
+    st = LabelBiasSnifferTrainer(sniffers["content"], "content")
+    s_state = st.create_state(batch["time_labels"]["content"], seed=SEED, device=dev)
+    before = [p.detach().clone() for p in s_state.optimizer.params]
+    step = st.make_train_step()
+    losses = []
+    for i in range(2):
+        s_state, m = step(s_state, {"time_labels": batch["time_labels"]})
+        losses.append(float(m["loss"]))
+    ev, preds = st.make_eval_step()(s_state, {"time_labels": batch["time_labels"]})
+    check(all(np.isfinite(v) for v in losses) and np.isfinite(float(ev["loss"])),
+          f"sniffer losses {losses} {float(ev['loss'])}")
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, s_state.optimizer.params))
+    check(moved == len(before), f"sniffer: {len(before) - moved} of {len(before)} parameters "
+                                "did not move")
+    check(set(preds) == {"style"}, f"sniffer predictions {set(preds)}")
+    print(f"sniffer (content -> style) on the card: losses {losses}, eval {float(ev['loss']):.6f}; "
+          f"all {len(before)} parameters moved")
+    return {"eval_ms": ms_f, "eval_auto_ms": ms_a, "rel": rel[worst], "sniffer_losses": losses}
+
+
+
+def stream_fusion_entries(auto_enc: dict, distill_sf: dict) -> list:
+    """The stream-graph kernels on the stream-fusion route: the forward per
+    B=1 autoencode (phase 14), dx and dW + db per encoder + decoder pass of
+    a distill step (phase 15)."""
+    out = []
+    b1 = auto_enc["per_batch"][1]
+    rows = distill_sf["segments"]["rows"]
+    for kind, line in (("fwd", 388), ("bwd_dx", 600), ("bwd_dw", 600)):
+        if kind == "fwd":
+            ms, plain, lib = b1["ms"], b1["plain_ms"], b1["library_ms"]
+            bound, bound_by = b1["bound_ms"], b1["bound_by"]
+            launches, err = auto_enc["launches"], auto_enc["errs"]["fwd"]
+            per = (f"launches: the main path's run ({AUTOENCODE_CLIPS} clips of "
+                   f"{AUTOENCODE_SECONDS} s autoencoded through cli.autoencode, "
+                   f"{auto_enc['per_autoencode']} a clip); times and bound: the "
+                   f"{auto_enc['per_autoencode']} segments of one B=1 autoencode, fp32 (library: "
+                   "the interpreter's cuDNN chain over the same runs); max_abs_err: every "
+                   "segment at B=1 and B=3 (function :786)")
+        else:
+            ms = sum(r["ms"][kind] for r in rows)
+            plain = sum(r["plain_ms"][kind] for r in rows)
+            lib = distill_sf["segments"]["library_ms"][kind]
+            bound, bound_by = segment_bound([r["cost"] for r in rows], kind)
+            launches, err = distill_sf["launches"][kind], distill_sf["segments"]["errs"][kind]
+            per = (f"launches: phase 15's run of {DISTILL_STEPS} distill steps with "
+                   "stream_impl='fused' (members and runs), launches_per_step: each step's; "
+                   f"times and bound: the {len(rows)} run segments of one encoder + decoder "
+                   "pass at the step's batch (3 x 43,680), fp32 (library: the interpreter's "
+                   "autograd over the same runs, its dW the backward with the parameters "
+                   "minus dx); max_abs_err: those segments' dx / dW and db against the plain "
+                   "backward over the kernel's outputs")
+        out.append({
+            "name": f"fused_stream_graph.{kind}.stream_fusion",
+            "route": "cuda",
+            "source": "hifigan_tpu_torch/csrc/stream_graph.cu",
+            "replaces": f"hifigan_tpu/ops/pallas/stream_graph.py:{line}",
+            "launches": launches,
+            "launches_per_step": distill_sf["per_step"][kind],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": lib,
+            "per": per,
+        })
+    out[0]["per_batch"] = {str(b): r for b, r in auto_enc["per_batch"].items()}
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2446,6 +3050,20 @@ def main() -> int:
     mel = logmel_phase(h, dev)
     torch.cuda.empty_cache()
 
+    # 14. the distillation autoencoder served through its CLI, the encoder's
+    # and decoder's narrow runs through the stream-graph kernel
+    auto_enc = autoencode_phase(distill_cfg, dev)
+    torch.cuda.empty_cache()
+
+    # 15. production distillation train steps with models.stream_impl 'fused'
+    distill_sf = distill_phase(distill_cfg, dev, stream_impl="fused", keep_state=True)
+    torch.cuda.empty_cache()
+
+    # 16. the validation eval step and the sniffer trainer
+    eval_sn = eval_sniffer_phase(distill_sf, distill_cfg, dev)
+    del distill_sf["state"], distill_sf["trainer"]
+    torch.cuda.empty_cache()
+
     bound_ms = max(request["ops"] / H100_BF16_FLOPS, request["bytes"] / H100_BYTES_PER_S) * 1e3
     kernels = [{
         "name": "fused_tail_stage",
@@ -2544,8 +3162,7 @@ def main() -> int:
     sg_ms = 0.0
     for kind, line in (("fwd", 388), ("bwd_dx", 600), ("bwd_dw", 600)):
         rows = graph["rows"]
-        ops_ms = sum(r["cost"]["flop"] for r in rows) / H100_FP32_FLOPS * 1e3
-        bytes_ms = sum(r["cost"][kind] for r in rows) / H100_BYTES_PER_S * 1e3
+        bound, bound_by = segment_bound([r["cost"] for r in rows], kind)
         entry = {
             "name": f"fused_stream_graph.{kind}",
             "route": "cuda",
@@ -2557,8 +3174,8 @@ def main() -> int:
             "max_abs_err_bf16": graph["errs"][torch.bfloat16][kind],
             "ms": sum(r["ms"][kind] for r in rows),
             "plain_ms": sum(r["plain_ms"][kind] for r in rows),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms": bound,
+            "bound_by": bound_by,
             "library_ms": graph["library_ms"][kind],
             "host_ms": distill["sg_host_ms"][kind] * len(rows) / distill["per_step"][kind],
             "redesigned": ("one cooperative launch per segment and pass: units of tiles in "
@@ -2576,6 +3193,7 @@ def main() -> int:
         }
         sg_ms += entry["ms"]
         kernels.append(entry)
+    kernels += stream_fusion_entries(auto_enc, distill_sf)
     kernels += per_layer_and_mel_entries(per_layer, train_b5, distill_b5, mel)
     b5_ms = sum(e["ms"] for e in kernels if e["name"].startswith("msd_conv1d_lrelu."))
     print(f"V1 train step with msd_conv_impl='pallas' {train_b5['step_ms']:.3f} ms, of which the "
@@ -2586,9 +3204,15 @@ def main() -> int:
     print(f"distill step {distill['step_ms']:.3f} ms; one {SG_ELEMENTS}-element discriminator "
           f"traversal's stream-graph passes {sg_ms:.3f} ms; profiled step "
           f"{json.dumps(distill['share'])}")
+    print(f"distill step with stream_impl='fused' {distill_sf['step_ms']:.3f} ms (launches per "
+          f"step {distill_sf['per_step']}); eval step {eval_sn['eval_ms']:.3f} ms; autoencode "
+          f"B=1 {auto_enc['per_batch'][1]['autoencode_ms']['fused']:.3f} ms fused, "
+          f"{auto_enc['per_batch'][1]['autoencode_ms']['auto']:.3f} ms auto")
     print(f"train step {train['step_ms']:.3f} ms, of which the conv-stack kernels "
           f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times); "
           f"bf16 train step {train_bf16['step_ms']:.3f} ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the kernels' build "
+          f"{build_s:.1f} s of it")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

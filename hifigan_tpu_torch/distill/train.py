@@ -26,8 +26,10 @@ update reads each group's norm on the host (one synchronisation a group).
 
 The step updates the state's modules and optimizer tensors in place and
 returns ``(state, losses)``, the losses a nested dict of detached scalars
-with a ``'total'`` per level. ``make_eval_step``, the callbacks and the
-dataset of ``distill/main.py`` are not ported yet.
+with a ``'total'`` per level. ``make_eval_step`` returns the validation
+step: the same losses and the data the callbacks read (waveforms, mels,
+label predictions), with no gradient and no change to any state. The
+callbacks and the dataset of ``distill/main.py`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -338,3 +340,48 @@ class DistillTrainer:
             return state, tree_map(lambda v: v.detach(), losses)
 
         return step
+
+    # ------------------------------------------------------------------
+
+    def make_eval_step(self):
+        """``eval(state, batch, generator=None) -> (losses, data)``: the
+        step's losses and ``data`` = ``{'wav': {truth, generated}, 'mel':
+        {truth, generated}, 'label': {truth, keep, sniff, hunt}}``, as the
+        JAX eval step gives them; no gradient, and the live discriminator's
+        spectral state is left as it was (the JAX step discards it). Noise
+        nodes draw from ``generator``."""
+        m = self.models
+
+        @torch.no_grad()
+        def eval_fn(state: DistillTrainState, batch: dict, generator=None):
+            bufs = {k: v.clone() for k, v in m.discriminator.named_buffers()}
+            try:
+                _trained, losses = self.compute_losses(state, batch, generator)
+            finally:
+                live = dict(m.discriminator.named_buffers())
+                for k, v in bufs.items():
+                    live[k].copy_(v)
+            wav = torch.as_tensor(batch["audio"], dtype=torch.float32, device=m.device)
+            x = wav[:, :, None]
+            emb = m.encoder(x, generator=generator)
+            wav_generated = m.decoder(emb, generator=generator)
+
+            def mel(w):
+                return log_mel_spectrogram(w[..., 0], self.mel_cfg)
+
+            keeps, sniffs, hunts = {}, {}, {}
+            for key in m.keepers:
+                kp = m.keepers[key](emb[key], generator=generator)["mean"]
+                keeps.update(kp)
+                sniffs.update(m.sniffers[key](kp[key], generator=generator)["mean"])
+                hunts.update(m.hunters[key](emb[key], generator=generator)["mean"])
+            data = {
+                "wav": {"truth": x, "generated": wav_generated},
+                "mel": {"truth": mel(x), "generated": mel(wav_generated)},
+                "label": {"truth": tree_map(lambda a: torch.as_tensor(a, device=m.device),
+                                            batch["time_labels"]),
+                          "keep": keeps, "sniff": sniffs, "hunt": hunts},
+            }
+            return tree_map(lambda v: v.detach(), losses), data
+
+        return eval_fn

@@ -28,13 +28,21 @@ CUDA kernels for CUDA tensors), except a node with stride > 1 and dilation
 > 1, which stays on the direct conv; ``'pallas_interpret'`` (the JAX
 test mode) is an alias of ``'pallas'``: the op itself takes its plain
 version for CPU tensors; ``'auto'``, ``'xla'`` and ``'folded'`` (the JAX time-fold lowering, the
-same function) the direct conv. Ensemble members inherit it. The
-stream-fusion pass waits: ``stream_impl`` other than
-``'auto'``/``'interpret'`` raises.
+same function) the direct conv. Ensemble members inherit it.
 
-Nodes ``conv2``, ``trans``, ``trans_shuffle``, ``trans2`` and ``up`` with
-linear interpolation raise ``NotImplementedError``: no shipped config uses
+``stream_impl``: ``'fused'`` (and ``'fused_interpret'``, the JAX test mode,
+an alias) evaluates a module called with one tensor through the
+stream-fusion pass (:mod:`hifigan_tpu_torch.dsl.stream_fusion`): runs of
+narrow stream ops become one stream-graph segment each (the kernel for CUDA
+tensors, its plain version for CPU tensors), everything else the
+interpreter at its own paths; ``'auto'`` and ``'interpret'`` interpret.
+Parameters are always built by the interpreter, so the flag never changes
 them.
+
+``conv2`` (a ``NormConv2d`` named ``<path>_conv2``, (N, H, W, C)), ``trans``
+(a ``NormConvTranspose1d`` named ``<path>_trans``), ``trans_shuffle`` and
+``up`` with linear interpolation follow the JAX nodes; ``trans2`` raises
+``NotImplementedError`` as the JAX node does.
 """
 
 from __future__ import annotations
@@ -49,17 +57,24 @@ import torch.nn.functional as F
 
 from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
 from hifigan_tpu_torch.dsl.normalize import RLIST, SEQ, is_normalized, normalize_config
-from hifigan_tpu_torch.models.layers import NormConv1d
+from hifigan_tpu_torch.models.layers import NormConv1d, NormConv2d, NormConvTranspose1d
 from hifigan_tpu_torch.ops import msd_conv
 from hifigan_tpu_torch.ops.conv import avg_pool1d, conv1d, leaky_relu
 
 Feats = list
 CONV_IMPLS = ("auto", "xla", "folded", "pallas", "pallas_interpret")
+STREAM_IMPLS = ("auto", "interpret", "fused", "fused_interpret")
 
 
 def dsl_padding(kernel: int, stride: int = 1, dilation: int = 1) -> int:
     """extra_utils.get_1d_padding: ((k-1)*d + 1) // 2."""
     return ((kernel - 1) * dilation + 1) // 2
+
+
+def dsl_padding_trans(kernel: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """extra_utils.get_1d_padding_trans -> (padding, output_padding)."""
+    total = (kernel - 1) * dilation + 1 - stride
+    return total // 2 + total % 2, total % 2
 
 
 def padding_period(length: int, period: int) -> tuple[int, int]:
@@ -93,9 +108,10 @@ def tree_map(fn, *trees):
 
 def sorted_dicts(cfg):
     """The config with every dict's keys sorted: what the JAX package's
-    vmapped ensemble hands its members (flax flattens module attributes as
-    pytrees), so a dict-valued ``split`` inside a homogeneous ensemble
-    assigns channels in sorted-key order."""
+    vmapped ensemble hands its members (flax flattens module attributes and
+    inputs as pytrees), so a dict-valued ``split`` inside a homogeneous
+    ensemble assigns channels in sorted-key order and a ``merge_dict`` of a
+    dict input concatenates in that order."""
     if isinstance(cfg, Mapping):
         return {k: sorted_dicts(cfg[k]) for k in sorted(cfg)}
     if isinstance(cfg, tuple):
@@ -116,9 +132,8 @@ class ConfigurableModule(nn.Module):
                  stream_impl: str = "auto", conv_impl: str = "auto",
                  weight_grads: bool = True) -> None:
         super().__init__()
-        if stream_impl not in ("auto", "interpret"):
-            raise NotImplementedError(f"stream_impl={stream_impl!r}: the stream-fusion pass is "
-                                      "not ported yet")
+        if stream_impl not in STREAM_IMPLS:
+            raise ValueError(f"unknown stream_impl {stream_impl!r}; expected one of {STREAM_IMPLS}")
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {conv_impl!r}; expected one of {CONV_IMPLS}")
         if member_impl not in ("auto", "fused", "interpret"):
@@ -129,6 +144,7 @@ class ConfigurableModule(nn.Module):
         self.compute_dtype = (getattr(torch, compute_dtype) if isinstance(compute_dtype, str)
                               else compute_dtype)
         self.member_impl = member_impl
+        self.stream_impl = stream_impl
         self.conv_impl = conv_impl
         self.weight_grads = weight_grads
         self.convs = nn.ModuleDict()
@@ -159,12 +175,16 @@ class ConfigurableModule(nn.Module):
 
     def _conv_module(self, name: str, in_ch: int, chout: int, k: int, s: int, d: int, g: int,
                      init: float, norm: str) -> NormConv1d:
+        return self._param_module(name, lambda: NormConv1d(
+            in_ch, chout, k, stride=s, padding=dsl_padding(k, s, d), dilation=d, groups=g,
+            norm=norm, generator=self._gen, init_std=init))
+
+    def _param_module(self, name: str, make) -> nn.Module:
+        """The conv module named ``name``, made by ``make()`` while building."""
         if name not in self.convs:
             if not self._building:
                 raise KeyError(f"{name}: parameters are missing (call build first)")
-            self.convs[name] = NormConv1d(in_ch, chout, k, stride=s, padding=dsl_padding(k, s, d),
-                                          dilation=d, groups=g, norm=norm, generator=self._gen,
-                                          init_std=init)
+            self.convs[name] = make()
         return self.convs[name]
 
     def conv_weights(self, name: str, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
@@ -182,7 +202,13 @@ class ConfigurableModule(nn.Module):
         cd = self.compute_dtype
         if cd is not None:
             args = tuple(_cast_float(a, cd) for a in args)
-        y, feats = self._eval(self.config, args, "m")
+        if self.stream_impl in ("fused", "fused_interpret") and len(args) == 1 and (
+                not self._building):
+            from hifigan_tpu_torch.dsl.stream_fusion import eval_stream_fused
+
+            y, feats = eval_stream_fused(self, self.config, args[0], "m")
+        else:
+            y, feats = self._eval(self.config, args, "m")
         if cd is not None:
             y = _cast_float(y, torch.float32)
             feats = [(t, _cast_float(v, torch.float32)) for t, v in feats]
@@ -265,24 +291,51 @@ class ConfigurableModule(nn.Module):
             seq = [("conv", (chin, chout, k, s, d, g, init)), ("shuffle", g),
                    ("conv", (chout, chout, 1, 1, 1, chout // g, init)), ("unshuffle", g)]
             return self._eval(seq, args, f"{path}_cs")
-        if name in ("conv2", "trans", "trans_shuffle", "trans2"):
-            raise NotImplementedError(f"DSL node {name!r} is not ported (no shipped config uses it)")
+        if name == "conv2":
+            chin, chout, k, s, d, g, init, norm = _conv_params(*p)
+            pad = dsl_padding(k, s, d)
+            mod = self._param_module(f"{path}_conv2", lambda: NormConv2d(
+                x.shape[-1], chout, (k, k), (s, s), (pad, pad), groups=g, norm=norm,
+                generator=self._gen, dilation=(d, d), init_std=init))
+            return mod.nhwc(x, self.update_spectral and not self._building), feats
+        if name == "trans":
+            chin, chout, k, s, d, g, init, norm = _conv_params(*p)
+            pad, out_pad = dsl_padding_trans(k, s, d)
+            if g != 1:
+                raise NotImplementedError("grouped transposed conv not used by the reference "
+                                          "configs")
+            mod = self._param_module(f"{path}_trans", lambda: NormConvTranspose1d(
+                x.shape[-1], chout, k, stride=s, padding=pad, norm=norm, generator=self._gen,
+                output_padding=out_pad, init_std=init))
+            return mod.nwc(x, self.update_spectral and not self._building), feats
+        if name == "trans_shuffle":
+            chin, chout, k, s, d, g, init, norm = _conv_params(*p)
+            if g == 1:
+                return self._eval(("trans", (chin, chout, k, s, d, g, init)), args, f"{path}_ts")
+            seq = [("conv", (chin, chin, 1, 1, 1, chin // g, init)), ("shuffle", g),
+                   ("trans", (chin, chout, k, s, 1, 1, init)), ("unshuffle", g)]
+            return self._eval(seq, args, f"{path}_ts")
+        if name == "trans2":
+            raise NotImplementedError("trans2 is unused by all reference configs")
 
         if name == "up":
             stride, mode = p
-            if mode != "nearest":
-                raise NotImplementedError(f"DSL node 'up' with mode {mode!r} is not ported")
-            return torch.repeat_interleave(x, int(stride), dim=1), feats
+            if mode == "nearest":
+                return torch.repeat_interleave(x, int(stride), dim=1), feats
+            # linear, align_corners=False: jax.image.resize's half-pixel centres
+            y = F.interpolate(x.transpose(1, 2), scale_factor=int(stride), mode="linear",
+                              align_corners=False)
+            return y.transpose(1, 2), feats
         if name == "pool":
             k, s = (int(v) for v in p)
             return avg_pool1d(x, k, s, padding=dsl_padding(k, s)), feats
         if name == "poold":
             k, s, d = (int(v) for v in p)
-            if s != 1:
-                raise NotImplementedError("DSL node 'poold' with stride != 1 is not ported")
+            # AvgPool1dDilated as the JAX node computes it: windows of k along
+            # (B, T/d, d, C)'s time axis, the stride over its phase axis
             b, t, c = x.shape
             y = avg_pool1d(x.reshape(b, t // d, d * c), k, 1, padding=dsl_padding(k, s))
-            return y.reshape(b, -1, c), feats
+            return y.reshape(b, -1, d, c)[:, :, ::s].reshape(b, -1, c), feats
 
         if name == "roll":
             period = int(p[0]) if isinstance(p, (tuple, list)) else int(p)
@@ -472,6 +525,8 @@ class ConfigurableModule(nn.Module):
                     mem._building, mem._gen = True, self._gen
                 self.ensembles[key] = members
             members = self.ensembles[key]
+            # the JAX nn.vmap hands its members dict inputs key-sorted too
+            args = sorted_dicts(args)
             stacked = member_feats = None
             if self._fused():
                 stacked, member_feats = self._ensemble_fused(members, members[0].config, args)

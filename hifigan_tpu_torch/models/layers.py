@@ -135,12 +135,14 @@ class NormConv2d(_NormConvBase):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
                  stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
                  groups: int = 1, norm: str = "weight",
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None, dilation: tuple[int, int] = (1, 1),
+                 init_std: float | None = None) -> None:
         super().__init__()
         kh, kw = kernel_size
         self.stride, self.padding, self.groups = tuple(stride), tuple(padding), groups
+        self.dilation = tuple(dilation)
         self._init_params((out_channels, in_channels // groups, kh, kw), out_channels,
-                          (in_channels // groups) * kh * kw, norm, generator)
+                          (in_channels // groups) * kh * kw, norm, generator, init_std)
 
     def nhwc(self, x: torch.Tensor, update_spectral: bool = False,
              dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -148,7 +150,7 @@ class NormConv2d(_NormConvBase):
         dtype = dtype or x.dtype
         w = self.effective_weight(update_spectral).permute(2, 3, 1, 0).to(dtype)
         return conv2d(x.to(dtype), w, self.bias.to(dtype), stride=self.stride,
-                      padding=self.padding, groups=self.groups)
+                      padding=self.padding, dilation=self.dilation, groups=self.groups)
 
 
 class NormConvTranspose1d(_NormConvBase):
@@ -156,15 +158,24 @@ class NormConvTranspose1d(_NormConvBase):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, norm: str = "weight",
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None, output_padding: int = 0,
+                 init_std: float | None = None) -> None:
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.output_padding = stride, padding, output_padding
         self._init_params((in_channels, out_channels, kernel_size), out_channels,
-                          out_channels * kernel_size, norm, generator)
+                          out_channels * kernel_size, norm, generator, init_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(x, self.effective_weight().to(x.dtype), self.bias.to(x.dtype),
-                                  stride=self.stride, padding=self.padding)
+                                  stride=self.stride, padding=self.padding,
+                                  output_padding=self.output_padding)
+
+    def nwc(self, x: torch.Tensor, update_spectral: bool = False) -> torch.Tensor:
+        """(N, W, I) -> (N, W', O) in x's dtype."""
+        y = F.conv_transpose1d(x.transpose(1, 2), self.effective_weight(update_spectral).to(x.dtype),
+                               self.bias.to(x.dtype), stride=self.stride, padding=self.padding,
+                               output_padding=self.output_padding)
+        return y.transpose(1, 2)
 
 
 def fold_weight_norm(state_dict: dict) -> dict:

@@ -1,4 +1,4 @@
-"""Vocoder checkpoint I/O (port of ``hifigan_tpu/train/checkpoint.py``).
+"""Checkpoint I/O (port of ``hifigan_tpu/train/checkpoint.py``).
 
 - ``g_XXXXXXXX`` files are torch zip checkpoints ``{'generator':
   state_dict}`` with the reference's keys; :func:`scan_checkpoint` finds
@@ -8,11 +8,21 @@
   state_dicts with the reference's keys and both optimizers' state (their
   Adam moments, as the JAX trainer keeps them, so a resume does not restart
   Adam).
+- :func:`load_checkpoint` reads those and the JAX package's native format
+  (flax msgpack, through :mod:`hifigan_tpu_torch.train.msgpack`), told apart
+  as the JAX function does: a zip (``PK``) or a ``.pt/.pth/.ckpt`` name is
+  torch, anything else msgpack. :func:`save_checkpoint` writes the torch
+  format atomically, on a background thread with ``async_=True``
+  (:func:`wait_for_checkpoints` blocks until every write is durable).
+- The JAX package's torch interchange, on numpy trees in its layouts:
+  :func:`load_torch_checkpoint`, :func:`convert_torch_generator` /
+  :func:`export_torch_generator` / :func:`save_torch_generator` and
+  :func:`convert_torch_discriminators` / :func:`export_torch_discriminators`
+  / :func:`save_torch_discriminators`.
 - :func:`generator_state_dict_from_jax` and
   :func:`discriminator_state_dict_from_jax` carry weights across from the
   JAX package: they turn its params pytrees (numpy arrays) into the port's
-  state_dicts, with the key mapping of the JAX package's
-  ``export_torch_generator`` / ``export_torch_discriminators``.
+  state_dicts (the exports above, as float32 tensors).
 - :func:`distill_variables_from_jax` carries the distillation models'
   variables (``DistillTrainer.create_state(...).variables`` of the JAX
   package: params, spectral ``u``, valves) into the port's DSL modules'
@@ -30,28 +40,66 @@ from __future__ import annotations
 
 import glob
 import os
+import re
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any
 
 import numpy as np
 import torch
 
+from hifigan_tpu_torch.train.msgpack import msgpack_restore
 
-def load_checkpoint(filepath: str, map_location: str | torch.device = "cpu") -> dict:
-    """Load a torch zip checkpoint (``g_*`` files hold ``{'generator': state_dict}``)."""
-    if not os.path.isfile(filepath):
-        raise FileNotFoundError(filepath)
-    with open(filepath, "rb") as f:
-        magic = f.read(2)
-    if magic != b"PK":
-        raise ValueError(f"{filepath} is not a torch zip checkpoint (msgpack files are not "
-                         "read by the port yet)")
-    return torch.load(filepath, map_location=map_location, weights_only=True)
+_ASYNC_POOL: ThreadPoolExecutor | None = None
+_PENDING: list = []
 
 
-def save_checkpoint(filepath: str, obj: dict) -> None:
-    """torch.save through a temporary file, so a reader never sees half a file."""
+def _write(filepath: str, obj: Any) -> None:
     tmp = filepath + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, filepath)
+
+
+def _host_copy(obj: Any) -> Any:
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(filepath: str, obj: Any, async_: bool = False) -> None:
+    """torch.save through a temporary file, so a reader never sees half a
+    file. ``async_=True`` copies the tensors to the host now and writes on a
+    background thread; call :func:`wait_for_checkpoints` before relying on
+    the file."""
+    if not async_:
+        _write(filepath, obj)
+        return
+    global _ASYNC_POOL
+    if _ASYNC_POOL is None:
+        _ASYNC_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+    _PENDING.append(_ASYNC_POOL.submit(_write, filepath, _host_copy(obj)))
+
+
+def wait_for_checkpoints() -> None:
+    """Block until all async checkpoint writes are durable."""
+    while _PENDING:
+        _PENDING.pop().result()
+
+
+def load_checkpoint(filepath: str, map_location: str | torch.device = "cpu") -> Any:
+    """A torch checkpoint (``g_*`` files hold ``{'generator': state_dict}``)
+    as torch.load gives it, or a native msgpack one as a tree of numpy
+    arrays (bfloat16 leaves as torch tensors)."""
+    if not os.path.isfile(filepath):
+        raise FileNotFoundError(filepath)
+    with open(filepath, "rb") as f:
+        data = f.read()
+    if data[:2] == b"PK" or filepath.endswith((".pt", ".pth", ".ckpt")):
+        return torch.load(filepath, map_location=map_location, weights_only=True)
+    return msgpack_restore(data)
 
 
 def scan_checkpoint(cp_dir: str, prefix: str) -> str | None:
@@ -60,18 +108,98 @@ def scan_checkpoint(cp_dir: str, prefix: str) -> str | None:
     return sorted(cp_list)[-1] if cp_list else None
 
 
-def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """JAX Generator params (``{'params': ...}`` or the inner dict) -> torch state_dict."""
-    params = params.get("params", params)
-    out: dict[str, torch.Tensor] = {}
+# ---------------------------------------------------------------------------
+# torch interchange on numpy trees (the JAX package's functions)
+# ---------------------------------------------------------------------------
+
+
+def _numpy_tree(x: Any) -> Any:
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_numpy_tree(v) for v in x)
+    return x
+
+
+def load_torch_checkpoint(filepath: str) -> dict:
+    """torch.load a reference checkpoint to numpy."""
+    return _numpy_tree(torch.load(filepath, map_location="cpu", weights_only=True))
+
+
+def _set(tree: dict, path: list[str], value: np.ndarray) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _convert_conv_entry(out: dict, module_path: list[str], pname: str, w: np.ndarray,
+                        transposed: bool) -> None:
+    """Map one torch conv tensor into the JAX param tree under module_path."""
+    if transposed:
+        tr = (2, 0, 1)  # (I,O,K) -> (K,I,O)
+    elif w.ndim == 4:
+        tr = (2, 3, 1, 0)  # (O,I,KH,KW) -> (KH,KW,I,O)
+    else:
+        tr = (2, 1, 0)  # (O,I,K) -> (K,I,O)
+    if pname == "bias":
+        _set(out, module_path + ["bias"], w)
+    elif pname in ("weight_v", "weight_orig"):
+        _set(out, module_path + ["v" if pname == "weight_v" else "kernel"], np.transpose(w, tr))
+    elif pname == "weight_g":
+        _set(out, module_path + ["g"], w.reshape(-1))
+    elif pname == "weight":
+        _set(out, module_path + ["kernel"], np.transpose(w, tr))
+    elif pname == "weight_u":
+        _set(out, module_path + ["__u"], w.reshape(-1))
+    # torch sn's weight_v power-iteration buffer is recomputed; skip.
+
+
+_GEN_KEY = re.compile(
+    r"^(conv_pre|conv_post|ups\.(\d+)|resblocks\.(\d+)\.(convs1|convs2|convs)\.(\d+))\.(.+)$")
+
+
+def convert_torch_generator(state_dict: dict) -> dict:
+    """Reference generator state_dict -> the JAX Generator's ``{'params': ...}``
+    (weight-normed or folded)."""
+    params: dict = {}
+    for key, w in state_dict.items():
+        w = np.asarray(_numpy_tree(w))
+        m = _GEN_KEY.match(key)
+        if not m:
+            raise KeyError(f"unrecognised generator key: {key}")
+        head, up_i, rb_i, rb_kind, rb_j, pname = m.groups()
+        if head in ("conv_pre", "conv_post"):
+            _convert_conv_entry(params, [head], pname, w, transposed=False)
+        elif head.startswith("ups."):
+            _convert_conv_entry(params, [f"ups_{up_i}"], pname, w, transposed=True)
+        else:
+            _convert_conv_entry(params, [f"resblocks_{rb_i}", f"{rb_kind}_{rb_j}"], pname, w,
+                                transposed=False)
+    return {"params": params}
+
+
+def export_torch_generator(params: dict, h=None) -> dict:
+    """JAX Generator params -> a reference-layout ``state_dict`` of numpy
+    arrays, the inverse of :func:`convert_torch_generator`: weight-normed
+    params ({'v','g'}) give ``weight_v``/``weight_g``, folded ones
+    ({'kernel'}) a plain ``weight``."""
+    out: dict[str, np.ndarray] = {}
 
     def emit(torch_key: str, leaf: dict, transposed: bool) -> None:
-        tr = (1, 2, 0) if transposed else (2, 1, 0)
-        if "v" in leaf and "g" in leaf:
-            out[f"{torch_key}.weight_v"] = np.transpose(np.asarray(leaf["v"]), tr)
-            out[f"{torch_key}.weight_g"] = np.asarray(leaf["g"]).reshape(-1, 1, 1)
+        kern = np.asarray(leaf.get("v", leaf.get("kernel")))
+        if transposed:
+            tr, g_shape = (1, 2, 0), (-1, 1, 1)  # (K,I,O) -> (I,O,K)
         else:
-            out[f"{torch_key}.weight"] = np.transpose(np.asarray(leaf["kernel"]), tr)
+            tr = (2, 1, 0) if kern.ndim == 3 else (3, 2, 0, 1)
+            g_shape = (-1,) + (1,) * (kern.ndim - 1)
+        if "v" in leaf and "g" in leaf:
+            out[f"{torch_key}.weight_v"] = np.transpose(kern, tr)
+            out[f"{torch_key}.weight_g"] = np.asarray(leaf["g"]).reshape(g_shape)
+        else:
+            out[f"{torch_key}.weight"] = np.transpose(kern, tr)
         if "bias" in leaf:
             out[f"{torch_key}.bias"] = np.asarray(leaf["bias"])
 
@@ -87,23 +215,79 @@ def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
                 emit(f"resblocks.{rb_i}.{kind}.{j}", conv_leaf, transposed=False)
         else:
             raise KeyError(f"unrecognised generator param subtree: {name}")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+    return out
+
+
+def save_torch_generator(filepath: str, params: dict, h=None) -> None:
+    """Write a reference-compatible ``g_*`` checkpoint (``{'generator':
+    state_dict}``, torch.save zip)."""
+    state_dict = {k: torch.from_numpy(np.array(v))
+                  for k, v in export_torch_generator(params, h).items()}
+    torch.save({"generator": state_dict}, filepath)
+
+
+def _convert_disc_stack(state_dict: dict) -> tuple[dict, dict]:
+    """MPD/MSD keys discriminators.{i}.convs.{j}.* / .conv_post.* -> params
+    and spectral trees."""
+    params: dict = {}
+    spectral: dict = {}
+    pat = re.compile(r"^discriminators\.(\d+)\.(convs\.(\d+)|conv_post)\.(.+)$")
+    # spectral_norm's 1-D weight_v buffer collides with weight_norm's weight_v
+    spectral_mods = {k[: -len(".weight_orig")] for k in state_dict if k.endswith(".weight_orig")}
+    for key, w in state_dict.items():
+        if key.endswith(".weight_v") and key[: -len(".weight_v")] in spectral_mods:
+            continue
+        m = pat.match(key)
+        if not m:
+            raise KeyError(f"unrecognised discriminator key: {key}")
+        disc_i, _conv, conv_j, pname = m.groups()
+        mod = f"convs_{conv_j}" if conv_j is not None else "conv_post"
+        _convert_conv_entry(params, [f"discriminators_{disc_i}", mod], pname,
+                            np.asarray(_numpy_tree(w)), transposed=False)
+
+    def hoist(node: dict, spec_node: dict) -> None:
+        for k in list(node.keys()):
+            if k == "__u":
+                spec_node["u"] = node.pop(k)
+            elif isinstance(node[k], dict):
+                spec_node.setdefault(k, {})
+                hoist(node[k], spec_node[k])
+                if not spec_node[k]:
+                    del spec_node[k]
+
+    hoist(params, spectral)
+    return params, spectral
+
+
+def convert_torch_discriminators(do_ckpt: dict) -> dict:
+    """Reference ``do_*`` checkpoint -> {'mpd': vars, 'msd': vars} (and its
+    steps, epoch)."""
+    out = {}
+    for name in ("mpd", "msd"):
+        if name in do_ckpt:
+            params, spectral = _convert_disc_stack(do_ckpt[name])
+            variables: dict = {"params": params}
+            if spectral:
+                variables["spectral"] = spectral
+            out[name] = variables
+    for extra in ("steps", "epoch"):
+        if extra in do_ckpt:
+            out[extra] = do_ckpt[extra]
+    return out
 
 
 def _l2n(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
     return x / (np.linalg.norm(x) + eps)
 
 
-def discriminator_state_dict_from_jax(mpd_vars: dict, msd_vars: dict) -> dict[str, dict]:
-    """JAX MPD/MSD variables (``{'params': ..., 'spectral': ...}``) ->
-    ``{'mpd': state_dict, 'msd': state_dict}`` for the port's modules.
+def export_torch_discriminators(mpd_vars: dict, msd_vars: dict, steps: int = 0,
+                                epoch: int = 0) -> dict:
+    """{'mpd','msd'} variables -> a reference-layout ``do_*`` dict (numpy),
+    the inverse of :func:`convert_torch_discriminators`. Spectral-normed
+    convs give ``weight_orig``, ``weight_u`` and the power-iteration vector
+    ``weight_v = l2n(W_matᵀ u)``; no optimizer state."""
 
-    Weight-normed convs give ``weight_v``/``weight_g``; spectral-normed ones
-    (MSD scale 0) ``weight_orig``, ``weight_u`` and the power-iteration
-    vector ``weight_v = l2n(W_matᵀ u)`` over the torch-layout matrix.
-    """
-
-    def stack(variables: dict) -> dict[str, torch.Tensor]:
+    def emit_stack(variables: dict) -> dict:
         spectral = variables.get("spectral", {})
         out: dict[str, np.ndarray] = {}
         for disc_name, mods in variables["params"].items():
@@ -128,9 +312,35 @@ def discriminator_state_dict_from_jax(mpd_vars: dict, msd_vars: dict) -> dict[st
                     out[f"{tk}.weight"] = np.transpose(kern, tr)
                 if "bias" in leaf:
                     out[f"{tk}.bias"] = np.asarray(leaf["bias"])
-        return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+        return out
 
-    return {"mpd": stack(mpd_vars), "msd": stack(msd_vars)}
+    return {"mpd": emit_stack(mpd_vars), "msd": emit_stack(msd_vars), "steps": int(steps),
+            "epoch": int(epoch)}
+
+
+def save_torch_discriminators(filepath: str, mpd_vars: dict, msd_vars: dict, steps: int = 0,
+                              epoch: int = 0) -> None:
+    """Write a reference-compatible ``do_*`` checkpoint (torch.save zip)."""
+    do = export_torch_discriminators(mpd_vars, msd_vars, steps=steps, epoch=epoch)
+    for name in ("mpd", "msd"):
+        do[name] = {k: torch.from_numpy(np.array(v)) for k, v in do[name].items()}
+    torch.save(do, filepath)
+
+
+def _float_tensors(sd: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def generator_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX Generator params (``{'params': ...}`` or the inner dict) -> torch state_dict."""
+    return _float_tensors(export_torch_generator(params.get("params", params)))
+
+
+def discriminator_state_dict_from_jax(mpd_vars: dict, msd_vars: dict) -> dict[str, dict]:
+    """JAX MPD/MSD variables (``{'params': ..., 'spectral': ...}``) ->
+    ``{'mpd': state_dict, 'msd': state_dict}`` for the port's modules."""
+    do = export_torch_discriminators(mpd_vars, msd_vars)
+    return {"mpd": _float_tensors(do["mpd"]), "msd": _float_tensors(do["msd"])}
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +349,22 @@ def discriminator_state_dict_from_jax(mpd_vars: dict, msd_vars: dict) -> dict[st
 
 DISTILL_MODELS = ("encoder", "decoder", "discriminator", "keepers", "hunters", "sniffers")
 _GROUPED = ("keepers", "hunters", "sniffers")
+
+
+def _dsl_to_torch(name: str, ndim: int) -> tuple:
+    """The transpose of a DSL conv's JAX kernel to torch's layout: 2-D convs
+    (``*_conv2``) (KH, KW, I, O) -> (O, I, KH, KW), transposed ones
+    (``*_trans``) (K, I, O) -> (I, O, K), the rest (K, I, O) -> (O, I, K)."""
+    if ndim == 4:
+        return (3, 2, 0, 1)
+    return (1, 2, 0) if name.endswith("_trans") else (2, 1, 0)
+
+
+def _dsl_to_jax(name: str, ndim: int) -> tuple:
+    """Inverse of :func:`_dsl_to_torch`."""
+    if ndim == 4:
+        return (2, 3, 1, 0)
+    return (2, 0, 1) if name.endswith("_trans") else (2, 1, 0)
 
 
 def dsl_state_dict_from_jax(variables: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -160,17 +386,19 @@ def dsl_state_dict_from_jax(variables: dict, prefix: str = "") -> dict[str, np.n
             continue
         key = f"{prefix}convs.{name}"
         u = spectral.get(name, {}).get("u")
+        kern = np.asarray(leaf.get("v", leaf.get("kernel")))
+        tr = _dsl_to_torch(name, kern.ndim)
         if "v" in leaf:
-            out[f"{key}.weight_v"] = np.transpose(np.asarray(leaf["v"]), (2, 1, 0))
-            out[f"{key}.weight_g"] = np.asarray(leaf["g"]).reshape(-1, 1, 1)
+            out[f"{key}.weight_v"] = np.transpose(kern, tr)
+            out[f"{key}.weight_g"] = np.asarray(leaf["g"]).reshape((-1,) + (1,) * (kern.ndim - 1))
         elif u is not None:
-            w_t = np.transpose(np.asarray(leaf["kernel"]), (2, 1, 0))
+            w_t = np.transpose(kern, tr)
             u = np.asarray(u).reshape(-1)
             out[f"{key}.weight_orig"] = w_t
             out[f"{key}.weight_u"] = u
             out[f"{key}.weight_v"] = _l2n(w_t.reshape(w_t.shape[0], -1).T @ u)
         else:
-            out[f"{key}.weight"] = np.transpose(np.asarray(leaf["kernel"]), (2, 1, 0))
+            out[f"{key}.weight"] = np.transpose(kern, tr)
         out[f"{key}.bias"] = np.asarray(leaf["bias"])
     for name, val in valves.items():
         if not isinstance(val, dict):
@@ -195,11 +423,11 @@ def dsl_variables_to_jax(sd: dict) -> dict:
             _, name, attr = key.split(".")
             leaf = params.setdefault(name, {})
             if attr == "weight_v" and f"convs.{name}.weight_g" in sd:
-                leaf["v"] = np.transpose(val, (2, 1, 0))
+                leaf["v"] = np.transpose(val, _dsl_to_jax(name, val.ndim))
             elif attr == "weight_g":
                 leaf["g"] = val.reshape(-1)
             elif attr in ("weight_orig", "weight"):
-                leaf["kernel"] = np.transpose(val, (2, 1, 0))
+                leaf["kernel"] = np.transpose(val, _dsl_to_jax(name, val.ndim))
             elif attr == "weight_u":
                 spectral.setdefault(name, {})["u"] = val
             elif attr == "bias":

@@ -95,3 +95,85 @@ def test_streaming_flags_match_the_jax_synthesize(stateful, fast):
     bf16 = fast or stateful
     tol = 2.0 ** -4 * np.abs(ref).max() if bf16 else 2e-4
     assert np.abs(got - ref).max() <= tol
+
+
+@pytest.fixture(scope="module")
+def experiment(tmp_path_factory):
+    """A distillation experiment directory written by the JAX side (the tiny
+    production-schema config as ``yaml.dump``, ``checkpoints/latest`` as
+    ``save_distill_state`` writes a seeded JAX trainer state), two wavs, and
+    the JAX CLI's autoencoded outputs."""
+    import jax
+    import yaml
+
+    from __graft_entry__ import _tiny_distill_config
+    from hifigan_tpu.cli import infer_autoencoding as jcli
+    from hifigan_tpu.distill.main import save_distill_state
+    from hifigan_tpu.distill.model import DistillModels as JaxDistillModels
+    from hifigan_tpu.distill.train import DistillTrainer as JaxDistillTrainer
+    from tests.torch_port_helpers import run_cheap
+
+    root = tmp_path_factory.mktemp("autoencoding")
+    cfg, labels, weights = _tiny_distill_config(3)
+    jm = JaxDistillModels(cfg, labels, weights, sampling_rate=cfg["sampling_rate"],
+                          member_impl="interpret")
+    jt = JaxDistillTrainer(jm, cfg)
+    state = run_cheap(lambda key: jt.create_state(key, 24), jax.random.PRNGKey(7))
+    exp = root / "exp"
+    (exp / "checkpoints").mkdir(parents=True)
+    (exp / "config.yaml").write_text(yaml.dump(cfg))
+    save_distill_state(str(exp / "checkpoints" / "latest"), state)
+    wavs = root / "wavs"
+    wavs.mkdir()
+    rng = np.random.default_rng(5)
+    for i, n in enumerate((1000, 733)):
+        save_wav(str(wavs / f"w{i}.wav"), (0.3 * rng.standard_normal(n)).astype(np.float32),
+                 cfg["sampling_rate"])
+    mp = pytest.MonkeyPatch()
+    mp.setattr("sys.argv", ["infer_autoencoding", "--experiment_dir", str(exp),
+                            "--input_wavs_dir", str(wavs), "--output_dir", str(root / "jax")])
+    try:
+        jcli.main()
+    finally:
+        mp.undo()
+    return {"root": root, "exp": exp, "wavs": wavs, "cfg": cfg}
+
+
+@pytest.mark.parametrize("impl", ["auto", "fused"])
+def test_infer_autoencoding_matches_the_jax_cli(experiment, tmp_path, impl):
+    """The port's CLI on the JAX side's experiment directory (its YAML and
+    flax msgpack read by the port's own readers), with the config's
+    ``models.stream_impl`` as written and set to 'fused': the same files
+    within 2e-4 of the JAX CLI's."""
+    import yaml
+
+    from hifigan_tpu_torch.cli import infer_autoencoding
+
+    exp = experiment["exp"]
+    if impl == "fused":
+        exp = tmp_path / "exp"
+        (exp / "checkpoints").mkdir(parents=True)
+        cfg = dict(experiment["cfg"], models=dict(experiment["cfg"]["models"], stream_impl="fused"))
+        (exp / "config.yaml").write_text(yaml.dump(cfg))
+        (exp / "checkpoints" / "latest").write_bytes(
+            (experiment["exp"] / "checkpoints" / "latest").read_bytes())
+    written = infer_autoencoding.main(["--experiment_dir", str(exp), "--input_wavs_dir",
+                                       str(experiment["wavs"]), "--output_dir",
+                                       str(tmp_path / "out"), "--device", "cpu"])
+    assert [p.rsplit("/", 1)[1] for p in written] == ["w0_autoencoded.wav", "w1_autoencoded.wav"]
+    for path, n in zip(written, (996, 732)):
+        got, sr = load_wav(path)
+        want, _ = load_wav(str(experiment["root"] / "jax" / path.rsplit("/", 1)[1]))
+        assert sr == experiment["cfg"]["sampling_rate"] and got.shape == want.shape == (1, n)
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+
+
+def test_infer_autoencoding_without_device_raises_when_there_is_no_gpu(experiment, monkeypatch,
+                                                                       tmp_path):
+    from hifigan_tpu_torch.cli import infer_autoencoding
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer_autoencoding.main(["--experiment_dir", str(experiment["exp"]), "--input_wavs_dir",
+                                 str(experiment["wavs"]), "--output_dir", str(tmp_path)])

@@ -432,6 +432,40 @@ def test_stream_graph_wrapper_rejects_bad_inputs(card):
         sg.fused_stream_graph(seg, [x], [torch.zeros(1, 3, 1, 2)], [None])
 
 
+def test_stream_fusion_launches_the_kernel_per_run(card, no_tf32):
+    """``stream_impl='fused'`` on CUDA tensors: one stream-graph forward
+    launch a fused run, forward and input gradient within 1e-4 of the
+    interpreter (a small distillation generator: 2, 6 and 30 channels)."""
+    from hifigan_tpu_torch.dsl import stream_fusion as sf
+    from hifigan_tpu_torch.dsl.module import ConfigurableModule
+    from hifigan_tpu_torch.dsl.parsing import parse_layers
+    from hifigan_tpu_torch.dsl.static_configs import get_generator_configs
+    from hifigan_tpu_torch.ops import stream_graph as sg
+
+    g = get_generator_configs(parse_layers([
+        "res.1,none:1,3,1,1,1,1e-00", "res.1|conv.1,sub_res:1,3,3,1,1,1e-00",
+        "res.1|conv.1,sub_res:3,3,5,1,1,1e-00"]), expansion_size=2, embedding_size=15)
+    x = torch.randn(2, 1500, 1, generator=torch.Generator().manual_seed(0))
+    fused = ConfigurableModule(g["encoder"], stream_impl="fused").build(x[:1])
+    plain = ConfigurableModule(g["encoder"]).build(x[:1])
+    plain.load_state_dict(fused.state_dict())
+    fused, plain = fused.to(card), plain.to(card)
+    xc = x.to(card).requires_grad_()
+    rec = []
+    before = sg.launches()
+    emb, _ = sf.eval_stream_fused(fused, fused.config, xc, "m", rec)
+    torch.cuda.synchronize()
+    assert len(rec) == 3 and sg.launches()["fwd"] - before["fwd"] == len(rec)
+    want = plain(xc)
+    loss = sum((emb[k] * want[k].detach()).sum() for k in emb)
+    (gx,) = torch.autograd.grad(loss, [xc])
+    (gw,) = torch.autograd.grad(sum((want[k] * want[k].detach()).sum() for k in want), [xc])
+    for k in emb:
+        torch.testing.assert_close(emb[k], want[k], rtol=1e-4,
+                                   atol=1e-4 * want[k].abs().max().item())
+    torch.testing.assert_close(gx, gw, rtol=1e-4, atol=1e-4 * gw.abs().max().item())
+
+
 # (Cin, Cout, K, stride, dilation, groups, padding, slope, T): MSD-shaped layers
 # (conv_0's one input channel, strided grouped, conv_post's one output), a
 # dilated classifier conv, asymmetric padding at stride 3

@@ -98,18 +98,63 @@ def test_one_hot_and_noise_nodes():
     assert a.shape == (2, 8, 5) and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("cfg", [("conv2", (1, 2, 3)), ("trans", (2, 2, 4, 2)),
-                                 ("trans_shuffle", (2, 2, 4, 2)), ("trans2", (1, 2, 3)),
-                                 ("up", (2, "linear"))])
-def test_unported_nodes_raise(cfg):
-    with pytest.raises(NotImplementedError, match=cfg[0]):
-        ConfigurableModule(cfg).build(torch.zeros(1, 8, 2))
+SHORT_NODES = {
+    "conv2": (("conv2", (3, 4, 3, 1, 1, 1, 0.01)), (2, 8, 6, 3)),
+    "trans": (("trans", (3, 4, 4, 2)), (2, 9, 3)),
+    "trans_shuffle": (("trans_shuffle", (4, 2, 5, 3, 1, 2, 0.01)), (2, 7, 4)),
+    "trans2": (("trans2", (3, 4, 3)), (2, 8, 6, 3)),
+    "up linear": (("up", (3, "linear")), (2, 7, 3)),
+}
 
 
-@pytest.mark.parametrize("impl", [{"stream_impl": "fused"}, {"stream_impl": "fused_interpret"}])
-def test_impls_that_wait_raise(impl):
-    with pytest.raises(NotImplementedError):
-        ConfigurableModule(("tanh",), **impl)
+@pytest.mark.parametrize("name", list(SHORT_NODES))
+def test_short_nodes_match_jax(name):
+    """The nodes no shipped config uses, against the JAX ones (trans2
+    raises in both)."""
+    cfg, shape = SHORT_NODES[name]
+    x = _x(shape)
+    if name == "trans2":
+        with pytest.raises(NotImplementedError, match="trans2"):
+            dsl_pair(cfg, x)
+        with pytest.raises(NotImplementedError, match="trans2"):
+            ConfigurableModule(cfg).build(torch.from_numpy(x[:1]))
+        return
+    jm, variables, tm = dsl_pair(cfg, x)
+    want = run_cheap(lambda v, xx: jm.apply(v, xx), variables, jnp.asarray(x))
+    got = tm(torch.from_numpy(x))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL, rtol=1e-5,
+                               err_msg=name)
+
+
+def test_poold_strided_matches_jax():
+    jm, variables, tm = dsl_pair(("poold", (3, 2, 4)), _x((2, 16, 3)))
+    x = _x((2, 16, 3), 1)
+    want = run_cheap(lambda v, xx: jm.apply(v, xx), variables, jnp.asarray(x))
+    got = tm(torch.from_numpy(x))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=1e-5)
+
+
+FUSABLE = [("conv", (2, 4, 3, 1, 1, 1, 0.01)),
+           ("res", [("lrelu", 0.1), ("conv", (4, 4, 3, 1, 1, 1, 0.01))]),
+           ("sub_res", [("lrelu", 0.2), ("conv", (4, 4, 3, 1, 1, 1, 0.01))]),
+           ("lrelu", 0.1)]
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused_interpret"])
+def test_stream_impls_match_jax(impl):
+    """Both fused values run the stream-fusion pass (on CPU tensors the
+    stream graph's plain version) and match the JAX pass."""
+    x = _x((2, 32, 2))
+    jm, variables, tm = dsl_pair(FUSABLE, x, jax_kw={"stream_impl": "fused_interpret"},
+                                 torch_kw={"stream_impl": impl})
+    assert tm.stream_impl == impl
+    want = run_cheap(lambda v, xx: jm.apply(v, xx), variables, jnp.asarray(x))
+    np.testing.assert_allclose(tm(torch.from_numpy(x)).detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=1e-5)
+    with pytest.raises(ValueError):
+        ConfigurableModule(("tanh",), stream_impl="xla")
 
 
 def test_conv_impls_route_conv_nodes():

@@ -22,7 +22,9 @@ from hifigan_tpu_torch.train.vocoder import create_train_state
 from tests.torch_port_helpers import folded_pair, small_config, tiny_train_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hifigan_tpu")
+# yaml and msgpack: the card's machine has neither (the port reads and
+# writes the JAX side's YAML and msgpack itself)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hifigan_tpu", "yaml", "msgpack")
 
 
 def _port_files():
@@ -57,7 +59,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "hifigan_tpu_torch/ops/msd_conv.py", "hifigan_tpu_torch/ops/logmel.py",
             "hifigan_tpu_torch/audio/mel.py", "hifigan_tpu_torch/models/layers.py",
             "hifigan_tpu_torch/models/streaming.py", "hifigan_tpu_torch/parallel/halo.py",
-            "hifigan_tpu_torch/parallel/__init__.py"} <= rel
+            "hifigan_tpu_torch/parallel/__init__.py", "hifigan_tpu_torch/dsl/stream_fusion.py",
+            "hifigan_tpu_torch/train/msgpack.py", "hifigan_tpu_torch/utils/caching.py",
+            "hifigan_tpu_torch/utils/pytree.py", "hifigan_tpu_torch/distill/sniffer.py",
+            "hifigan_tpu_torch/cli/infer_autoencoding.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -233,3 +238,32 @@ def test_the_tpu_lane_layout_still_raises():
                   lambda: MultiScaleDiscriminator(width=16, conv_impl="fused_zoned")):
         with pytest.raises(NotImplementedError, match="fused_zoned"):
             build()
+
+
+def test_stream_fusion_reaches_the_stream_graph_and_has_no_fallback(monkeypatch):
+    """``stream_impl='fused'`` sends each fused run to ``fused_stream_graph``
+    (its plain version for CPU tensors); a tensor on another device reaches
+    the wrapper too, which raises: the pass never falls back to the
+    interpreter."""
+    from hifigan_tpu_torch.dsl import fused_member
+    from hifigan_tpu_torch.dsl import stream_fusion as sf
+    from hifigan_tpu_torch.dsl.module import ConfigurableModule
+
+    cfg = [("conv", (2, 4, 3)), ("lrelu", 0.1), ("res", [("conv", (4, 4, 3))]), ("tanh",)]
+    x = torch.zeros(1, 16, 2)
+    m = ConfigurableModule(cfg, stream_impl="fused").build(x)
+    calls = []
+    real = fused_member.fused_stream_graph
+    monkeypatch.setattr(fused_member, "fused_stream_graph",
+                        lambda seg, ins, *a, **kw: calls.append(ins[0].device) or real(
+                            seg, ins, *a, **kw))
+    before = tsg.launches()
+    m(x)
+    assert calls == [torch.device("cpu")] and tsg.launches() == before
+    m.to("meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        m(torch.zeros(1, 16, 2, device="meta"))
+    assert len(calls) == 2
+    for fn in (sf.run_fused, sf.eval_stream_fused, fused_member._SegBuilder.run):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
