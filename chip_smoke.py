@@ -47,7 +47,9 @@ into the git-ignored ``build/kernels``), then:
 4. runs ``python -m hifigan_tpu_torch.cli.infer --fast`` end to end on a
    synthetic sine wav with a torch ``g_*`` file and ``config.json``, then
    with ``--streaming_chunk 32`` and with ``--streaming_chunk 32
-   --streaming_state``, checking each wav's length;
+   --streaming_state``, checking each wav's length, and ``python -m
+   hifigan_tpu_torch.cli.infer_e2e --streaming_chunk 32`` on a seeded
+   103-frame mel (its length checked);
 5. holds the MSD conv-stack kernels (``fused_conv_stack``: forward, dx, dW
    + db) against their plain versions at the three V1 MSD scales, full
    width, conv_0's output as input, seeded ``MultiScaleDiscriminator``
@@ -167,8 +169,30 @@ into the git-ignored ``build/kernels``), then:
    right shapes, losses within DISTILL_REL_TOL, the live discriminator's
    state unchanged; then two ``LabelBiasSnifferTrainer`` steps and an eval
    step on the card (finite losses, every parameter moving);
-17. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+17. trains distillation from its entry point: prints which of pandas,
+   matplotlib, yaml, tensorboard, scipy, msgpack, flax and jax import (the
+   port needs none but scipy) and which host libraries
+   load (libhost_dsp, lame/mpg123, vorbis, libgsm) and so which path each
+   augmentation takes; writes a seeded corpus (16 clips of 8 s at 16 kHz, 4
+   speakers, 2 sexes, word and phone TextGrids, train and test data
+   configs, noise and room-impulse assets for every augmentation option of
+   ``configs/distill.json``); runs ``python -m
+   hifigan_tpu_torch.cli.warm_cache`` on it, then ``python -m
+   hifigan_tpu_torch.distill.main`` on a copy of ``configs/distill.json``
+   with ``accumulated_grad_batches`` 1 (printed) for 20 steps and again to
+   22 (the second run resumes at step 20), checking the experiment
+   directory's files; restores ``checkpoints/latest`` into ``DistillModels``
+   on the card; runs ``distill.main.train()`` in process for 3 steps with
+   the counts set to 0 just before and read just after, each step's
+   stream-graph launches against ``distill_launches_per_step`` and its
+   losses finite, printing ms per step through ``train()`` (data engine and
+   callbacks included) beside phase 9's bare step and the data engine's
+   host time a batch; runs ``python -m hifigan_tpu_torch.cli.train_sniffers``
+   for 4 steps and checks its checkpoints;
+18. prints one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line last.
+
+Every phase prints its wall time.
 
 Any failed check raises: the script then exits non-zero and prints no ok
 line. Without a CUDA device, or without the package beside it, it exits 2.
@@ -2831,6 +2855,297 @@ def stream_fusion_entries(auto_enc: dict, distill_sf: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: distillation training from its entry point on a synthetic corpus
+# ---------------------------------------------------------------------------
+
+CORPUS_CLIPS = 16  # clips of CORPUS_SECONDS at 16 kHz: 4 speakers, 2 sexes
+CORPUS_SECONDS = 8.0
+CORPUS_SPEAKERS = (("spk1", "m"), ("spk2", "f"), ("spk3", "m"), ("spk4", "f"))
+MAIN_STEPS = (20, 22)  # distill.main's first run, then its resumed run
+# train() in process: step 1 warms up; steps 2-4 each end at the next
+# batch's pull, so each of those intervals holds a step and a batch load
+TRAIN_IN_PROCESS_STEPS = 5
+SNIFFER_STEPS = 4
+
+
+def write_textgrid(path: Path, duration: float, tiers: dict) -> None:
+    """A long-format Praat TextGrid of interval tiers {name: [(lo, hi, text)]}."""
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+             f"xmax = {duration}", "tiers? <exists>", f"size = {len(tiers)}", "item []:"]
+    for n, (name, rows) in enumerate(tiers.items(), 1):
+        lines += [f"    item [{n}]:", '        class = "IntervalTier"', f'        name = "{name}"',
+                  "        xmin = 0", f"        xmax = {duration}",
+                  f"        intervals: size = {len(rows)}"]
+        for i, (lo, hi, text) in enumerate(rows, 1):
+            lines += [f"        intervals [{i}]:", f"            xmin = {lo}",
+                      f"            xmax = {hi}", f'            text = "{text}"']
+    path.write_text("\n".join(lines))
+
+
+def write_corpus(root: Path, config: dict, seed: int) -> None:
+    """A seeded synthetic corpus under ``root/{data,aug}``: CORPUS_CLIPS clips
+    (voiced words between silences) with word and phone TextGrids, train and
+    test data configs of the ``tests/test_data_engine.py`` shape, and noise
+    and room-impulse assets for every augmentation option of ``config``."""
+    from hifigan_tpu_torch.audio import save_wav
+
+    sr = config["sampling_rate"]
+    data, aug = root / "data" / "synth", root / "aug"
+    for d in ("wavs", "tg", "data_configs/train", "data_configs/test"):
+        (data / d).mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    n = int(CORPUS_SECONDS * sr)
+    t = np.arange(n) / sr
+    phones = ("AA", "B", "EH", "K", "IY", "S", "T", "OW")
+    for i in range(CORPUS_CLIPS):
+        spk, sex = CORPUS_SPEAKERS[i % len(CORPUS_SPEAKERS)]
+        f0 = (110.0 if sex == "m" else 200.0) * (1 + 0.1 * rng.random())
+        words, phone_rows, at = [(0.0, 0.5, "")], [(0.0, 0.5, "sil")], 0.5
+        gate = np.zeros(n)
+        while at < CORPUS_SECONDS - 1.0:
+            dur = round(float(rng.uniform(0.4, 0.9)), 3)
+            words.append((at, at + dur, f"w{int(rng.integers(0, 20))}"))
+            cuts = np.linspace(at, at + dur, 4)
+            phone_rows += [(round(float(a), 4), round(float(b), 4),
+                            phones[int(rng.integers(0, len(phones)))])
+                           for a, b in zip(cuts[:-1], cuts[1:])]
+            gate[int(at * sr):int((at + dur) * sr)] = 1.0
+            gap = round(float(rng.uniform(0.1, 0.3)), 3)
+            words.append((at + dur, at + dur + gap, ""))
+            phone_rows.append((at + dur, at + dur + gap, "sil"))
+            at = round(at + dur + gap, 4)
+        words.append((at, CORPUS_SECONDS, ""))
+        phone_rows.append((at, CORPUS_SECONDS, "sil"))
+        voiced = sum(np.sin(2 * np.pi * f0 * k * t) / k for k in (1, 2, 3))
+        wav = 0.3 * gate * voiced + 0.005 * rng.standard_normal(n)
+        name = f"{spk}_u{i:02d}_{sex}"
+        save_wav(str(data / "wavs" / f"{name}.wav"), wav.astype(np.float32), sr)
+        write_textgrid(data / "tg" / f"{name}.TextGrid", CORPUS_SECONDS,
+                       {"words": words, "phones": phone_rows})
+    spec = {"name": "synth", "result": "wavs", "config": [{
+        "group-name": "wavs",
+        "sources": [{"type": "glob", "glob": "**/wavs/*.wav", "label": "path"}],
+        "group-labels": {"mic-brand": "blueyeti"},
+        "enrichments": [
+            {"type": "regex",
+             "patterns": {"path": r"(?P<name>(?P<speaker>spk\d)_\w+_(?P<sex>[mf]))\.wav$"}},
+            {"type": "files",
+             "labels": {"wav": "**/wavs/{name}.wav", "textgrid": "**/tg/{name}.TextGrid"}},
+            {"type": "select", "labels": ["wav", "textgrid", "speaker", "sex", "mic-brand"]},
+        ]}]}
+    (data / "data_configs" / "train" / "synth.json").write_text(json.dumps(spec))
+    (data / "data_configs" / "test" / "synth.json").write_text(json.dumps(spec))
+    options = config["augmentation"]["options"]
+    for kind in options["noise"]:
+        d = aug / "libriadapt" / "noise" / "blueyeti" / kind
+        d.mkdir(parents=True)
+        save_wav(str(d / "n1.wav"), (0.1 * rng.standard_normal(2 * sr)).astype(np.float32), sr)
+    for i, room in enumerate(options["rir"]):
+        d = aug / "RIRS_NOISES" / "simulated_rirs" / room
+        d.mkdir(parents=True)
+        m = int(sr * (0.1 + 0.2 * i))
+        rir = rng.standard_normal(m) * np.exp(-np.arange(m) / (0.2 * m))
+        rir[0] = 1.0
+        save_wav(str(d / "r1.wav"), (0.9 * rir / np.abs(rir).max()).astype(np.float32), sr)
+
+
+def run_module(args: list, what: str, timeout: int = 600) -> str:
+    """``python -m ...`` from the checkout; raises on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    tail = "\n".join(proc.stdout.strip().splitlines()[-6:])
+    print(f"{what}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; last lines:\n"
+          f"{tail}")
+    check(proc.returncode == 0, f"{what} failed:\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def card_environment() -> dict:
+    """Which of the engine's optional libraries and host libraries the
+    card's machine has. A module is looked up with ``find_spec``, which
+    finds it without running it: this process imports none of them."""
+    from importlib.util import find_spec
+
+    from hifigan_tpu_torch.data import codecs, native
+    from hifigan_tpu_torch.distill.main import summary_writer_class
+
+    imports = {mod: find_spec(mod) is not None
+               for mod in ("pandas", "matplotlib", "yaml", "tensorboard", "scipy")}
+    imports["SummaryWriter"] = summary_writer_class() is not None
+    libs = {"libhost_dsp": native.available(), "gsm0610": native.gsm0610_available(),
+            "lame+mpg123": codecs.mp3_available(), "vorbis": codecs.vorbis_available(),
+            "libgsm": codecs.libgsm_available()}
+    # the path each augmentation takes, as data/augmentation.py chooses it
+    paths = {"filters": "libhost_dsp" if libs["libhost_dsp"] else "numpy/scipy",
+             "gsm": ("libgsm" if libs["libgsm"] else "gsm0610 (libhost_dsp)"
+                     if libs["gsm0610"] else "band limit + mu-law"),
+             "mp3": "lame/mpg123" if libs["lame+mpg123"] else "MDCT stand-in",
+             "vorbis": "libvorbis" if libs["vorbis"] else "MDCT stand-in"}
+    print(f"card imports: {json.dumps(imports)}")
+    print(f"card host libraries: {json.dumps(libs)}; augmentation paths: {json.dumps(paths)}")
+    return {"imports": imports, "libs": libs, "paths": paths}
+
+
+def distill_main_phase(config: dict, dev, bare_step_ms: float) -> dict:
+    """Phase 17: the distillation trainer's entry point on a seeded corpus."""
+    from hifigan_tpu_torch.distill import main as dmain
+    from hifigan_tpu_torch.ops import stream_graph as sg
+    from hifigan_tpu_torch.train.msgpack import msgpack_restore
+
+    env = card_environment()
+    cfg = copy.deepcopy(config)
+    cfg["learning"]["accumulated_grad_batches"] = 1
+    print("distill.main: configs/distill.json as shipped but accumulated_grad_batches 1 "
+          "instead of 100 (a copy written beside the corpus), so the validation and "
+          f"continuous-checkpoint interval is 20 steps and {MAIN_STEPS[0]} steps reach it")
+    n_blocks = len(cfg["models"]["discriminator"]["layers"]) - 2
+    per_step = distill_launches_per_step(n_blocks)
+    out = {"env": env}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_corpus(tmp, cfg, SEED + 170)
+        print(f"corpus: {CORPUS_CLIPS} clips of {CORPUS_SECONDS} s at {cfg['sampling_rate']} Hz, "
+              f"{len(CORPUS_SPEAKERS)} speakers, written in {time.perf_counter() - t0:.2f} s")
+        cfg_path = tmp / "distill.json"
+        cfg_path.write_text(json.dumps(cfg))
+        common = ["--config", str(cfg_path), "--datasets_dir", str(tmp)]
+        run_module(["hifigan_tpu_torch.cli.warm_cache", *common, "--iterate", "1"], "warm_cache")
+        for loop in cfg["loops"]:
+            source = cfg["data"][loop]["dataset"]["source"]
+            n = len(list((tmp / "cache" / source / "frame_labels").glob("*.pickle")))
+            check(n == CORPUS_CLIPS, f"warm_cache: {n} label pickles for {source}")
+
+        logs = tmp / "logs"
+        exp = logs / cfg["experiment"]["name"] / f"version_{cfg['experiment']['version']}"
+        main_s = []
+        for steps in MAIN_STEPS:
+            t0 = time.perf_counter()
+            text = run_module(["hifigan_tpu_torch.distill.main", *common, "--logs_base",
+                               str(logs), "--max_steps", str(steps), "--device", "cuda"],
+                              f"distill.main --max_steps {steps}", timeout=900)
+            main_s.append(time.perf_counter() - t0)
+            check(f"trained to step {steps}" in text, f"distill.main did not end at {steps}")
+            if steps != MAIN_STEPS[0]:
+                check(f"at step {MAIN_STEPS[0]}" in text and "Resumed from" in text,
+                      f"distill.main --max_steps {steps} did not resume at {MAIN_STEPS[0]}")
+        for rel in ("config.yaml", "model_configs/encoder.yaml", "model_configs/decoder.yaml",
+                    "model_configs/discriminator.yaml", "checkpoints/latest", "checkpoints/best",
+                    "checkpoints/best_score.yaml"):
+            check((exp / rel).is_file(), f"distill.main wrote no {rel}")
+        best = (exp / "checkpoints" / "best_score.yaml").read_text().strip().splitlines()[0]
+        print(f"distill.main wrote {sorted(p.name for p in (exp / 'checkpoints').iterdir())}, "
+              f"best_score {best}; runs {[round(s, 1) for s in main_s]} s")
+
+        # the datasets in process, then `latest` restored into DistillModels on the card
+        datasets = dmain.build_datasets(cfg, str(tmp))
+        _, trainer, loop = dmain.initialize(cfg, datasets, logs_base=str(tmp / "restore"),
+                                            device=dev)
+        dmain.load_distill_state(str(exp / "checkpoints" / "latest"), loop.state)
+        raw = msgpack_restore((exp / "checkpoints" / "latest").read_bytes())
+        enc = loop.state.models.encoder
+        name, param = next(iter(enc.named_parameters()))
+        check(loop.state.step == MAIN_STEPS[0] and int(raw["step"]) == MAIN_STEPS[0],
+              f"latest restored at step {loop.state.step}, expected {MAIN_STEPS[0]}")
+        check(param.device.type == "cuda" and bool(torch.isfinite(param).all()),
+              f"restored encoder {name} on {param.device}")
+        print(f"checkpoints/latest restored through msgpack_restore into DistillModels on "
+              f"{param.device} at step {loop.state.step}")
+        del loop, trainer
+        torch.cuda.empty_cache()
+
+        # train() in process: B3's launches per step, ms per step, the data engine's share
+        records, pulls, data_s = [], [], []
+        orig_step = dmain.DistillTrainer.make_train_step
+
+        def counted(self):
+            step = orig_step(self)
+
+            def run(state, batch, generator=None):
+                before = sg.launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, losses = step(state, batch, generator)
+                torch.cuda.synchronize()
+                records.append({"ms": (time.perf_counter() - t0) * 1e3,
+                                "launches": {k: v - before[k] for k, v in sg.launches().items()},
+                                "losses": flat_losses(losses)})
+                return state, losses
+
+            return run
+
+        train_ds = datasets["train"]
+        orig_batches = train_ds.batches
+
+        def timed_batches(*a, **kw):
+            it = orig_batches(*a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                data_s.append(time.perf_counter() - t0)
+                if batch is None:
+                    return
+                pulls.append(time.perf_counter())
+                yield batch
+
+        train_ds.batches = timed_batches
+        dmain.DistillTrainer.make_train_step = counted
+        try:
+            sg.reset_launches()
+            t0 = time.perf_counter()
+            state = dmain.train(cfg, datasets, logs_base=str(tmp / "inproc"),
+                                max_steps=TRAIN_IN_PROCESS_STEPS, device=dev)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            launches = sg.launches()
+        finally:
+            dmain.DistillTrainer.make_train_step = orig_step
+            train_ds.batches = orig_batches
+        check(state.step == TRAIN_IN_PROCESS_STEPS and len(records) == TRAIN_IN_PROCESS_STEPS,
+              f"train() ended at step {state.step} after {len(records)} steps")
+        for i, r in enumerate(records):
+            check(r["launches"] == per_step,
+                  f"train() step {i + 1}: stream-graph launches {r['launches']}, derived "
+                  f"{per_step} (distill_launches_per_step)")
+            check(all(np.isfinite(v) for v in r["losses"].values()),
+                  f"train() step {i + 1}: non-finite losses")
+        # only the intervals that end at a batch pull: the last step has no
+        # batch load after it, so an interval ending at t_end is shorter
+        through = [(b - a) * 1e3 for a, b in zip(pulls, pulls[1:])]
+        check(len(through) >= 3, f"train(): {len(pulls)} batch pulls")
+        through_ms = float(np.median(through[1:]))
+        step_ms = float(np.median([r["ms"] for r in records[1:]]))
+        data_ms = float(np.median([s * 1e3 for s in data_s[1:len(records)]]))
+        print(f"train() x{TRAIN_IN_PROCESS_STEPS} in process: {t_end - t0:.1f} s; stream-graph "
+              f"launches {launches} (per step {[r['launches'] for r in records]}, derived "
+              f"{per_step}); ms from one batch pull to the next through train() (a step, its "
+              f"callbacks and the next batch's load) {[round(t, 3) for t in through]}, median "
+              f"after the first {through_ms:.3f} ms; the step alone {step_ms:.3f} ms and the "
+              f"data engine's host time {data_ms:.3f} ms a batch (serial sum "
+              f"{step_ms + data_ms:.3f} ms); phase 9's bare step {bare_step_ms:.3f} ms; total "
+              f"loss by step {[round(r['losses']['/total'], 4) for r in records]}")
+        out.update(launches=launches, per_step=per_step, through_ms=through_ms, step_ms=step_ms,
+                   data_ms=data_ms, main_s=main_s)
+        del state
+        torch.cuda.empty_cache()
+
+        snif_logs = tmp / "sniffer_logs"
+        run_module(["hifigan_tpu_torch.cli.train_sniffers", *common, "--logs_base",
+                    str(snif_logs), "--max_steps", str(SNIFFER_STEPS), "--device", "cuda"],
+                   f"train_sniffers --max_steps {SNIFFER_STEPS}")
+        for key in ("content", "style"):
+            ck = snif_logs / "sniffers" / key / "default" / "version_1" / "checkpoints"
+            check((ck / "best").is_file() and (ck / "best_score.yaml").is_file(),
+                  f"train_sniffers wrote no best checkpoint for {key}")
+            step = int(msgpack_restore((ck / "best").read_bytes())["step"])
+            check(0 < step <= SNIFFER_STEPS, f"{key} sniffer's best at step {step}")
+            print(f"train_sniffers {key}: checkpoints {sorted(p.name for p in ck.iterdir())}, "
+                  f"best at step {step}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2864,6 +3179,14 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda")
+    lap_at = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - lap_at[0]:.1f} s wall")
+        lap_at[0] = now
+
+    lap("1 (card, build)")
     h = get_config("v1")
     hop = int(np.prod(h["upsample_rates"]))
     gen_w = Generator(h, generator=torch.Generator().manual_seed(SEED))
@@ -2898,6 +3221,8 @@ def main() -> int:
               f"{r['ms']:.4f} ms, without the upsampling phase {r['ms_without_pre']:.4f} ms, "
               f"cudnn chain (with the transposed convs) {r['library_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
+
+    lap("2 (B1 against its plain version)")
 
     # 3. serve requests through the port's main path, then with fold_up=True
     torch.cuda.empty_cache()
@@ -2965,10 +3290,13 @@ def main() -> int:
     # ... and the fp32 body: the same requests in fp32, unfolded and with fold_up
     serve32 = serve_fp32_phase(h, sd, mels, refs, dev)
 
+    lap("3 (serving)")
+
     # 3b. both streamers through the kernel at 32-frame chunks
     stream = stream_phase(h, sd, fast, plain, dev, mel_gen)
     del fast, plain
     torch.cuda.empty_cache()
+    lap("3b (streamers)")
 
     # 4. the CLI end to end
     with tempfile.TemporaryDirectory() as tmp:
@@ -2997,6 +3325,23 @@ def main() -> int:
                   f"cli {flags} wav silent")
             print(f"cli {' '.join(flags)} wrote {os.path.basename(written[0])}: "
                   f"{data.shape[1]} samples @ {out_sr} Hz")
+        # the end-to-end CLI on a mel, vocoded in halo windows
+        (tmp / "mels").mkdir()
+        e2e_frames = 3 * STREAM_CHUNK + 7
+        np.save(tmp / "mels" / "utt.npy", (torch.randn((h["num_mels"], e2e_frames),
+                                                       generator=mel_gen) * 2 - 5).numpy())
+        run_module(["hifigan_tpu_torch.cli.infer_e2e", "--input_mels_dir", str(tmp / "mels"),
+                    "--output_dir", str(tmp / "e2e"), "--checkpoint_file",
+                    str(tmp / "ckpt" / "g_00000000"), "--streaming_chunk", str(STREAM_CHUNK)],
+                   f"cli.infer_e2e --streaming_chunk {STREAM_CHUNK}")
+        data, out_sr = load_wav(str(tmp / "e2e" / "utt_generated_e2e.wav"))
+        check(out_sr == sr and data.shape == (1, e2e_frames * hop),
+              f"infer_e2e --streaming_chunk wav {data.shape} @ {out_sr}")
+        check(bool(np.isfinite(data).all()) and float(np.abs(data).max()) > 0,
+              "infer_e2e --streaming_chunk wav silent")
+        print(f"cli.infer_e2e --streaming_chunk {STREAM_CHUNK} wrote {data.shape[1]} samples "
+              f"({e2e_frames} frames x {hop})")
+    lap("4 (inference CLIs)")
 
     # 5. the conv-stack kernels against their plain versions, every V1 MSD scale
     torch.cuda.empty_cache()
@@ -3004,6 +3349,7 @@ def main() -> int:
     stack = stack_phase(msd, dev)
     del msd
     torch.cuda.empty_cache()
+    lap("5 (B2 against its plain version)")
 
     # 6. V1 train steps through the port's main training path (its pools
     # held against the CPU first)
@@ -3014,9 +3360,11 @@ def main() -> int:
     # ... and in bench.py's bf16 training precision
     train_bf16 = train_bf16_phase(h, dev)
     torch.cuda.empty_cache()
+    lap("6 (V1 training)")
 
     # 7. the training CLI end to end
     cli_train_phase(h)
+    lap("7 (training CLI)")
 
     # 8. the stream-graph kernels against their plain versions, every segment of a member
     distill_cfg = json.loads((REPO / "configs" / "distill.json").read_text())
@@ -3025,10 +3373,12 @@ def main() -> int:
     graph = stream_graph_phase(models, dev)
     del models
     torch.cuda.empty_cache()
+    lap("8 (B3 against its plain version)")
 
     # 9. production distillation train steps through the port's main path
     distill = distill_phase(distill_cfg, dev)
     torch.cuda.empty_cache()
+    lap("9 (distillation steps)")
 
     # 10. the per-layer conv kernels against their plain versions: every V1
     # MSD layer, every distinct distill conv geometry
@@ -3036,33 +3386,44 @@ def main() -> int:
     per_layer = msd_conv_phase(msd, distill_cfg, dev)
     del msd
     torch.cuda.empty_cache()
+    lap("10 (B5 against its plain version)")
 
     # 11. V1 train steps with msd_conv_impl='pallas'
     train_b5 = train_phase(h, dev, v1_ref, msd_impl="pallas")
     del v1_ref
     torch.cuda.empty_cache()
+    lap("11 (V1 training through B5)")
 
     # 12. production distillation train steps with conv_impl='pallas'
     distill_b5 = distill_phase(distill_cfg, dev, conv_impl="pallas")
     torch.cuda.empty_cache()
+    lap("12 (distillation through B5)")
 
     # 13. mel extraction through the fused log-mel kernel
     mel = logmel_phase(h, dev)
     torch.cuda.empty_cache()
+    lap("13 (B4)")
 
     # 14. the distillation autoencoder served through its CLI, the encoder's
     # and decoder's narrow runs through the stream-graph kernel
     auto_enc = autoencode_phase(distill_cfg, dev)
     torch.cuda.empty_cache()
+    lap("14 (autoencoder CLI)")
 
     # 15. production distillation train steps with models.stream_impl 'fused'
     distill_sf = distill_phase(distill_cfg, dev, stream_impl="fused", keep_state=True)
     torch.cuda.empty_cache()
+    lap("15 (distillation with stream fusion)")
 
     # 16. the validation eval step and the sniffer trainer
     eval_sn = eval_sniffer_phase(distill_sf, distill_cfg, dev)
     del distill_sf["state"], distill_sf["trainer"]
     torch.cuda.empty_cache()
+    lap("16 (eval and sniffer steps)")
+
+    # 17. distillation training from its entry point on a seeded corpus
+    dmain = distill_main_phase(distill_cfg, dev, distill["step_ms"])
+    lap("17 (distill.main, warm_cache, train_sniffers)")
 
     bound_ms = max(request["ops"] / H100_BF16_FLOPS, request["bytes"] / H100_BYTES_PER_S) * 1e3
     kernels = [{
@@ -3178,6 +3539,8 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": graph["library_ms"][kind],
             "host_ms": distill["sg_host_ms"][kind] * len(rows) / distill["per_step"][kind],
+            "launches_distill_main": dmain["launches"][kind],
+            "launches_per_step_distill_main": dmain["per_step"][kind],
             "redesigned": ("one cooperative launch per segment and pass: units of tiles in "
                            "phases between grid barriers, tiles shaped by the op (all of c_out "
                            "a thread up to 4 channels), input windows staged once per tile, dW "
@@ -3188,7 +3551,9 @@ def main() -> int:
                     "(library: the interpreter's cuDNN conv chain over the same discriminator); "
                     "host_ms: the host time of the wrapper and launch functions for the "
                     "10 launches of a pass in the distill steps, the segments built anew each "
-                    "call; max_abs_err: every "
+                    "call; launches_distill_main: the in-process distill.main.train() run of "
+                    f"{TRAIN_IN_PROCESS_STEPS} steps on the corpus of phase 17 (its sanity "
+                    "validation's eval step included); max_abs_err: every "
                     "segment (function :786)"),
         }
         sg_ms += entry["ms"]
@@ -3208,6 +3573,9 @@ def main() -> int:
           f"step {distill_sf['per_step']}); eval step {eval_sn['eval_ms']:.3f} ms; autoencode "
           f"B=1 {auto_enc['per_batch'][1]['autoencode_ms']['fused']:.3f} ms fused, "
           f"{auto_enc['per_batch'][1]['autoencode_ms']['auto']:.3f} ms auto")
+    print(f"distill.main.train() on the phase-17 corpus {dmain['through_ms']:.3f} ms a step "
+          f"(the step {dmain['step_ms']:.3f} ms, the data engine {dmain['data_ms']:.3f} ms a "
+          f"batch) against phase 9's bare step {distill['step_ms']:.3f} ms")
     print(f"train step {train['step_ms']:.3f} ms, of which the conv-stack kernels "
           f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times); "
           f"bf16 train step {train_bf16['step_ms']:.3f} ms")

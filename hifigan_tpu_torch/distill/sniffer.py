@@ -69,7 +69,8 @@ class LabelBiasSnifferTrainer:
         if device is not None:
             self.sniffer.to(device)
         return SnifferTrainState(0, self.sniffer, AmsGradW(list(self.sniffer.parameters()),
-                                                           self.b1, self.b2))
+                                                           self.b1, self.b2,
+                                                           learning_rate=self.lr))
 
     def _loss(self, batch: dict):
         dev = next(self.sniffer.parameters()).device

@@ -28,8 +28,8 @@ The step updates the state's modules and optimizer tensors in place and
 returns ``(state, losses)``, the losses a nested dict of detached scalars
 with a ``'total'`` per level. ``make_eval_step`` returns the validation
 step: the same losses and the data the callbacks read (waveforms, mels,
-label predictions), with no gradient and no change to any state. The
-callbacks and the dataset of ``distill/main.py`` are not ported yet.
+label predictions), with no gradient and no change to any state.
+``distill/main.py`` drives both from a corpus, with the callbacks.
 """
 
 from __future__ import annotations
@@ -103,9 +103,10 @@ class AmsGradW:
     parameter). The bias corrections are taken in float32, as optax does."""
 
     def __init__(self, params: list[torch.Tensor], b1: float, b2: float,
-                 weight_decay: float = 0.01, eps: float = 1e-8):
+                 weight_decay: float = 0.01, eps: float = 1e-8, learning_rate: float = 0.0):
         self.params = params
         self.b1, self.b2, self.wd, self.eps = b1, b2, weight_decay, eps
+        self.learning_rate = learning_rate  # the last update's (optax's injected value)
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
@@ -117,6 +118,7 @@ class AmsGradW:
         parameters as they are; the moments advance all the same, as in the
         JAX step."""
         self.count += 1
+        self.learning_rate = lr
         count = np.float32(self.count)
         c1 = float(np.float32(1) - np.float32(self.b1) ** count)
         c2 = float(np.float32(1) - np.float32(self.b2) ** count)
@@ -192,8 +194,8 @@ class DistillTrainer:
         m = self.models
         if build:
             m.build(self.segment_length, seed)
-        optimizers = {g: AmsGradW(self.group_params(g), self.b1, self.b2)
-                      for g in self.flat_groups}
+        optimizers = {g: AmsGradW(self.group_params(g), self.b1, self.b2, learning_rate=lr)
+                      for g, lr in self.flat_groups.items()}
         accum = {g: [torch.zeros_like(p) for p in opt.params] for g, opt in optimizers.items()}
         return DistillTrainState(step=0, models=m, disc_copy=m.frozen_discriminator(),
                                  hunter_copies={k: m.frozen_copy(h) for k, h in m.hunters.items()},

@@ -12,8 +12,9 @@
   (flax msgpack, through :mod:`hifigan_tpu_torch.train.msgpack`), told apart
   as the JAX function does: a zip (``PK``) or a ``.pt/.pth/.ckpt`` name is
   torch, anything else msgpack. :func:`save_checkpoint` writes the torch
-  format atomically, on a background thread with ``async_=True``
-  (:func:`wait_for_checkpoints` blocks until every write is durable).
+  format (or the msgpack one) atomically, on a background thread with
+  ``async_=True`` (:func:`wait_for_checkpoints` blocks until every write
+  is durable).
 - The JAX package's torch interchange, on numpy trees in its layouts:
   :func:`load_torch_checkpoint`, :func:`convert_torch_generator` /
   :func:`export_torch_generator` / :func:`save_torch_generator` and
@@ -32,6 +33,18 @@
   transposes; a homogeneous ensemble's stacked (axis 0) leaves become its
   members'.
 
+- :func:`distill_train_state_to_jax` writes the whole ``DistillTrainState``
+  (step, variables, frozen copies, the six groups' AdamW-amsgrad states,
+  the gradient accumulators) as the tree ``flax.serialization.to_state_dict``
+  gives of the JAX trainer's state, and :func:`load_distill_train_state`
+  loads such a tree (either side's) into the port's state in place;
+  :func:`sniffer_state_to_jax`/:func:`load_sniffer_state` do the same for
+  the standalone sniffer trainer. An optimizer state is the JAX layout of
+  ``optax.inject_hyperparams(chain(scale_by_amsgrad, add_decayed_weights,
+  scale_by_learning_rate))``: ``count``, the injected ``learning_rate``,
+  and ``inner_state['0']``'s ``count``/``mu``/``nu``/``nu_max`` over the
+  group's ``{'model/key': params}`` tree.
+
 Layout transposes (JAX -> torch): Conv1d (K, I, O) -> (O, I, K); Conv2d
 (KH, KW, I, O) -> (O, I, KH, KW); ConvTranspose1d (K, I, O) -> (I, O, K).
 """
@@ -47,21 +60,29 @@ from typing import Any
 import numpy as np
 import torch
 
-from hifigan_tpu_torch.train.msgpack import msgpack_restore
+from hifigan_tpu_torch.train.msgpack import msgpack_restore, msgpack_serialize
 
 _ASYNC_POOL: ThreadPoolExecutor | None = None
 _PENDING: list = []
 
 
-def _write(filepath: str, obj: Any) -> None:
+def _write(filepath: str, obj: Any, encoding: str = "torch") -> None:
     tmp = filepath + ".tmp"
-    torch.save(obj, tmp)
+    if encoding == "msgpack":
+        with open(tmp, "wb") as f:
+            f.write(msgpack_serialize(obj))
+    else:
+        torch.save(obj, tmp)
     os.replace(tmp, filepath)
 
 
 def _host_copy(obj: Any) -> Any:
+    """A copy the training step cannot change under the writer thread (a
+    CPU tensor, or an array viewing one, shares the parameter's memory)."""
     if torch.is_tensor(obj):
         return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
     if isinstance(obj, dict):
         return {k: _host_copy(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -69,18 +90,20 @@ def _host_copy(obj: Any) -> Any:
     return obj
 
 
-def save_checkpoint(filepath: str, obj: Any, async_: bool = False) -> None:
-    """torch.save through a temporary file, so a reader never sees half a
-    file. ``async_=True`` copies the tensors to the host now and writes on a
+def save_checkpoint(filepath: str, obj: Any, async_: bool = False,
+                    encoding: str = "torch") -> None:
+    """torch.save (``encoding='msgpack'``: the JAX package's flax msgpack)
+    through a temporary file, so a reader never sees half a file.
+    ``async_=True`` copies the tensors to the host now and writes on a
     background thread; call :func:`wait_for_checkpoints` before relying on
     the file."""
     if not async_:
-        _write(filepath, obj)
+        _write(filepath, obj, encoding)
         return
     global _ASYNC_POOL
     if _ASYNC_POOL is None:
         _ASYNC_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
-    _PENDING.append(_ASYNC_POOL.submit(_write, filepath, _host_copy(obj)))
+    _PENDING.append(_ASYNC_POOL.submit(_write, filepath, _host_copy(obj), encoding))
 
 
 def wait_for_checkpoints() -> None:
@@ -484,3 +507,137 @@ def distill_state_dicts(models) -> dict:
     mods = models.modules()
     return {m: ({k: v.state_dict() for k, v in mods[m].items()} if m in _GROUPED
                 else mods[m].state_dict()) for m in DISTILL_MODELS}
+
+
+# ---------------------------------------------------------------------------
+# whole train states, in the JAX trainer's state-dict layout
+# ---------------------------------------------------------------------------
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _params_tree(module, tensors) -> dict:
+    """Tensors aligned with ``module.parameters()`` -> the JAX module's
+    params tree of those tensors (moments, gradients: the layout of its
+    parameters)."""
+    sd = {name: t for (name, _), t in zip(module.named_parameters(), tensors)}
+    return dsl_variables_to_jax(sd)["params"]
+
+
+def _params_tensors(module, tree: dict) -> list:
+    """Inverse of :func:`_params_tree` (numpy arrays, in ``parameters()`` order)."""
+    spectral = dsl_variables_to_jax(module.state_dict()).get("spectral", {})
+    sd = dsl_state_dict_from_jax({"params": tree, "spectral": spectral})
+    return [sd[name] for name, _ in module.named_parameters()]
+
+
+def _split(modules: list, tensors: list) -> list:
+    """A group's flat tensor list -> one list per module of the group."""
+    out, at = [], 0
+    for m in modules:
+        n = len(list(m.parameters()))
+        out.append(tensors[at:at + n])
+        at += n
+    return out
+
+
+def _group_tree(keys: list, modules: list, tensors: list) -> dict:
+    return {k: _params_tree(m, ts) for k, m, ts in zip(keys, modules, _split(modules, tensors))}
+
+
+def _group_tensors(keys: list, modules: list, tree: dict) -> list:
+    return [t for k, m in zip(keys, modules) for t in _params_tensors(m, tree[k])]
+
+
+def _opt_to_jax(opt, to_tree) -> dict:
+    inner = {"count": np.asarray(opt.count, np.int32), "mu": to_tree(opt.mu),
+             "nu": to_tree(opt.nu), "nu_max": to_tree(opt.nu_max)}
+    return {"count": np.asarray(opt.count, np.int32),
+            "hyperparams": {"learning_rate": np.asarray(opt.learning_rate, np.float32)},
+            "hyperparams_states": {}, "inner_state": {"0": inner, "1": {}, "2": {}}}
+
+
+@torch.no_grad()
+def _copy_into(dst: list, src: list) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(_f32(s).reshape(d.shape))
+
+
+def _opt_from_jax(opt, tree: dict, to_tensors) -> None:
+    inner = tree["inner_state"]["0"]
+    opt.count = int(inner["count"])
+    opt.learning_rate = float(np.float32(tree["hyperparams"]["learning_rate"]))
+    for name in ("mu", "nu", "nu_max"):
+        _copy_into(getattr(opt, name), to_tensors(inner[name]))
+
+
+def _group_modules(state, group: str) -> tuple[list, list]:
+    from hifigan_tpu_torch.distill.model import expand_group_paths
+
+    mods = state.models.modules()
+    paths = expand_group_paths(group, mods)
+    modules = []
+    for path in paths:
+        node = mods
+        for p in path:
+            node = node[p]
+        modules.append(node)
+    return ["/".join(p) for p in paths], modules
+
+
+def _module_variables(module) -> dict:
+    return dsl_variables_to_jax(module.state_dict())
+
+
+def distill_train_state_to_jax(state) -> dict:
+    """A port ``DistillTrainState`` -> the JAX trainer's state dict (numpy)."""
+    opt_states, accum = {}, {}
+    for g, opt in state.optimizers.items():
+        keys, modules = _group_modules(state, g)
+        opt_states[g] = _opt_to_jax(opt, lambda ts, k=keys, m=modules: _group_tree(k, m, ts))
+        accum[g] = _group_tree(keys, modules, state.grad_accum[g])
+    return {"step": np.asarray(state.step, np.int32),
+            "variables": distill_variables_to_jax(distill_state_dicts(state.models)),
+            "disc_copy": _module_variables(state.disc_copy),
+            "hunter_copies": {k: _module_variables(h) for k, h in state.hunter_copies.items()},
+            "opt_states": opt_states, "grad_accum": accum}
+
+
+@torch.no_grad()
+def load_distill_train_state(state, tree: dict):
+    """Load a JAX-layout distill train-state dict (numpy leaves) into the
+    port's ``state`` in place; returns ``state``."""
+    state.step = int(tree["step"])
+    load_distill_variables(state.models, distill_variables_from_jax(tree["variables"]))
+    state.disc_copy.load_state_dict({k: _f32(v) for k, v in
+                                     dsl_state_dict_from_jax(tree["disc_copy"]).items()})
+    for k, h in state.hunter_copies.items():
+        h.load_state_dict({n: _f32(v) for n, v in
+                           dsl_state_dict_from_jax(tree["hunter_copies"][k]).items()})
+    for g, opt in state.optimizers.items():
+        keys, modules = _group_modules(state, g)
+        _opt_from_jax(opt, tree["opt_states"][g],
+                      lambda t, k=keys, m=modules: _group_tensors(k, m, t))
+        _copy_into(state.grad_accum[g], _group_tensors(keys, modules, tree["grad_accum"][g]))
+    return state
+
+
+def sniffer_state_to_jax(state) -> dict:
+    """A port ``SnifferTrainState`` -> the JAX sniffer trainer's state dict."""
+    return {"step": np.asarray(state.step, np.int32),
+            "variables": _module_variables(state.sniffer),
+            "opt_state": _opt_to_jax(state.optimizer,
+                                     lambda ts: _params_tree(state.sniffer, ts))}
+
+
+@torch.no_grad()
+def load_sniffer_state(state, tree: dict):
+    """Load a JAX-layout sniffer train-state dict into ``state`` in place."""
+    state.step = int(tree["step"])
+    state.sniffer.load_state_dict({k: _f32(v) for k, v in
+                                   dsl_state_dict_from_jax(tree["variables"]).items()})
+    _opt_from_jax(state.optimizer, tree["opt_state"],
+                  lambda t: _params_tensors(state.sniffer, t))
+    return state

@@ -10,22 +10,33 @@ YAML that ``yaml.dump`` writes of a JSON-like config, with PyYAML's (YAML
 
 - block mappings and block sequences (a sequence under a key at the key's
   indentation, ``- - x`` nesting, a mapping inside a sequence item);
-- plain, single-quoted and double-quoted scalars (on one line);
+- plain and double-quoted scalars on one line, single-quoted ones over one
+  or more lines (``yaml.dump`` folds a long one at a space past column 80);
 - int (decimal, ``0x``, ``0o``/``0`` octal, ``0b``), float (``1.0e-05``,
   ``.inf``, ``-.inf``, ``.nan``), bool (``true``/``false``/``yes``/``no``/
   ``on``/``off`` in their three cases), null (``null``, ``~``, empty);
 - ``{}`` and ``[]``; whole-line comments and blank lines.
 
+- the ``...`` line that ends a document whose value is a plain scalar.
+
 Anything else (anchors, tags, flow collections with items, block scalars,
-multi-line scalars, timestamps, documents markers) raises ``ValueError``
-with its line number: it is never guessed. :func:`dump_yaml` writes what
-``yaml.dump`` writes for such a config (keys sorted, two-space indent),
-except that a tuple is written as a list and long strings are not folded.
+multi-line plain or double-quoted scalars, timestamps, other document
+markers) raises ``ValueError`` with its line number: it is never guessed.
+:func:`dump_yaml` writes what ``yaml.dump`` writes for such a config (keys
+sorted, two-space indent, a single-quoted string folded as PyYAML folds it,
+``...`` after a plain scalar document), except that a tuple is written as a
+list.
+
+The pickle pair caches host-side results (the data engine's tables, label
+statistics and per-item labels): :func:`do_with_pickle_cache` loads a
+pickle or makes and writes it, :func:`create_pickle_cache` only writes a
+missing one.
 """
 
 from __future__ import annotations
 
 import math
+import pickle
 import re
 from pathlib import Path
 from typing import Any
@@ -41,7 +52,6 @@ _FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
                     r"|\.[0-9_]+(?:[eE][-+][0-9]+)?|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
 _SEXAGESIMAL = re.compile(r"^[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?$")
 _TIMESTAMP = re.compile(r"^[0-9][0-9][0-9][0-9]-[0-9][0-9]?-[0-9][0-9]?")
-_PLAIN_SAFE = re.compile(r"^[A-Za-z0-9_./()+$^][A-Za-z0-9_./()+$^,|:=<>\-]*$")
 
 
 def _fail(line: int, what: str):
@@ -142,18 +152,73 @@ def _value(text: str, line: int) -> Any:
     return _resolve_plain(text, line)
 
 
+def _value_text(content: str) -> str:
+    """The value part of a line: after any ``- `` item dashes and a
+    ``key:``."""
+    while content.startswith("- "):
+        content = content[2:].lstrip(" ")
+    m = re.match(r"^(.*?):(?: (.*))?$", content)
+    if m is not None and not content.startswith(("'", '"')):
+        content = (m.group(2) or "").strip()
+    return content
+
+
+def _inline_plain(content: str) -> bool:
+    """Whether a line ends in a plain scalar that a deeper-indented next
+    line continues (a root scalar, ``key: value`` or ``- value``)."""
+    value = _value_text(content)
+    return (bool(value) and value != "-" and value[0] not in "'\"#{[&*!|>"
+            and value not in ("{}", "[]"))
+
+
+def _continues_plain(line: str) -> bool:
+    """Whether a deeper-indented line can be the rest of a plain scalar
+    (not an item, a key, a comment or a document marker)."""
+    return (bool(line) and line != "..." and not _is_item(line) and not line.startswith("#")
+            and ": " not in line and not line.endswith(":"))
+
+
+def _opens_single_quote(content: str) -> bool:
+    """Whether a line leaves a single-quoted value open (an odd count of
+    quotes from a value that starts with one)."""
+    value = _value_text(content)
+    return value.startswith("'") and value.count("'") % 2 == 1
+
+
 class _Lines:
     def __init__(self, text: str):
         self.items = []  # (line number, indent, content)
-        for n, raw in enumerate(text.splitlines(), 1):
+        raws = text.splitlines()
+        k = 0
+        while k < len(raws):
+            n, raw = k + 1, raws[k]
+            k += 1
             if "\t" in raw[:len(raw) - len(raw.lstrip())]:
                 _fail(n, "a tab in the indentation")
             stripped = raw.strip()
             if not stripped or stripped.startswith("#"):
                 continue
+            if stripped == "..." and not any(r.strip() for r in raws[k:]):
+                break
             if stripped in ("---", "...") or stripped.startswith(("--- ", "%")):
                 _fail(n, "a document marker or directive")
-            self.items.append((n, len(raw) - len(raw.lstrip(" ")), raw.strip(" ").rstrip()))
+            content = raw.strip(" ").rstrip()
+            ind = len(raw) - len(raw.lstrip(" "))
+            while (_inline_plain(content) and k < len(raws)
+                   and len(raws[k]) - len(raws[k].lstrip(" ")) > ind
+                   and _continues_plain(raws[k].strip(" "))):
+                # a folded plain scalar: each line break is one space
+                content += " " + raws[k].strip(" ")
+                k += 1
+            while _opens_single_quote(content):
+                # a folded single-quoted scalar: a line break is one space,
+                # an empty line a newline
+                if k >= len(raws):
+                    _fail(n, "an unterminated single-quoted scalar")
+                nxt = raws[k].strip(" ")
+                k += 1
+                content += "\n" if not nxt else (" " if not content.endswith("\n") else "") + nxt
+            self.items.append((n, ind, content))
 
 
 def _is_item(content: str) -> bool:
@@ -265,6 +330,19 @@ def _float_text(v: float) -> str:
     return text
 
 
+def _block_plain_allowed(v: str) -> bool:
+    """Whether PyYAML's ``analyze_scalar`` lets a string be a plain scalar
+    in block context (printable ASCII, no indicator where it would end a
+    plain scalar, no leading or trailing space)."""
+    if not v or v.startswith(("---", "...")) or v[0] == " " or v[-1] == " ":
+        return False
+    if not all(" " <= ch <= "~" for ch in v):
+        return False
+    if v[0] in "#,[]{}&*!|>'\"%@`" or (v[0] in "?:-" and (len(v) == 1 or v[1] == " ")):
+        return False
+    return ": " not in v and not v.endswith(":") and " #" not in v
+
+
 def _scalar_text(v: Any) -> str:
     if v is None:
         return "null"
@@ -276,7 +354,7 @@ def _scalar_text(v: Any) -> str:
         return _float_text(float(v))
     if not isinstance(v, str):
         raise TypeError(f"cannot write {type(v).__name__} as YAML")
-    if _PLAIN_SAFE.match(v) and not v.endswith(":") and ": " not in v:
+    if _block_plain_allowed(v):
         try:
             plain_ok = _resolve_plain(v, 0) == v
         except ValueError:
@@ -304,6 +382,76 @@ def _scalar_text(v: Any) -> str:
     return '"' + "".join(out) + '"'
 
 
+def _fold_single(text: str, column: int, indent: int) -> str:
+    """``'text'`` as PyYAML's ``write_single_quoted`` writes it with the
+    quote at ``column``: a lone space past column 80 (not the first or last
+    character) becomes a line break and ``indent`` spaces."""
+    out, col = ["'"], column + 1
+    spaces, start, end = False, 0, 0
+    while end <= len(text):
+        ch = text[end] if end < len(text) else None
+        if spaces:
+            if ch != " ":
+                if start + 1 == end and col > 80 and start != 0 and end != len(text):
+                    out.append("\n" + " " * indent)
+                    col = indent
+                else:
+                    out.append(text[start:end])
+                    col += end - start
+                start = end
+        elif ch is None or ch == " " or ch == "'":
+            if start < end:
+                out.append(text[start:end])
+                col += end - start
+                start = end
+        if ch == "'":
+            out.append("''")
+            col += 2
+            start = end + 1
+        if ch is not None:
+            spaces = ch == " "
+        end += 1
+    out.append("'")
+    return "".join(out)
+
+
+def _fold_plain(text: str, column: int, indent: int) -> str:
+    """A plain scalar as PyYAML's ``write_plain`` writes it from ``column``:
+    a lone space past column 80 becomes a line break and ``indent`` spaces."""
+    out, col = [], column
+    spaces, start, end = False, 0, 0
+    while end <= len(text):
+        ch = text[end] if end < len(text) else None
+        if spaces:
+            if ch != " ":
+                if start + 1 == end and col > 80:
+                    out.append("\n" + " " * indent)
+                    col = indent
+                else:
+                    out.append(text[start:end])
+                    col += end - start
+                start = end
+        elif ch is None or ch == " ":
+            out.append(text[start:end])
+            col += end - start
+            start = end
+        if ch is not None:
+            spaces = ch == " "
+        end += 1
+    return "".join(out)
+
+
+def _scalar_at(v: Any, column: int, indent: int) -> str:
+    """A scalar's text written at ``column``, folded onto lines at
+    ``indent`` if it is a long string."""
+    text = _flat(v)
+    if not isinstance(v, str) or "\n" in v:
+        return text
+    if text.startswith("'"):
+        return _fold_single(v, column, indent)
+    return text if text.startswith('"') else _fold_plain(v, column, indent)
+
+
 def _dump(v: Any, indent: int, out: list, lead: str) -> None:
     """Write ``v``; ``lead`` is the text already on its first line ("key:"
     or "- " prefixes), the block starting at ``indent``."""
@@ -323,9 +471,9 @@ def _dump(v: Any, indent: int, out: list, lead: str) -> None:
             if isinstance(item, (dict, list, tuple)) and item:
                 _dump(item, indent + 2, out, f"{prefix}- ")
             else:
-                out.append(f"{prefix}- {_flat(item)}")
+                out.append(f"{prefix}- {_scalar_at(item, len(prefix) + 2, indent + 2)}")
     else:
-        out.append(f"{lead}{_flat(v)}")
+        out.append(f"{lead}{_scalar_at(v, len(lead), indent + 2)}")
 
 
 def _flat(v: Any) -> str:
@@ -345,13 +493,15 @@ def _entry(v: Any, indent: int, out: list, head: str) -> None:
         out.append(head)
         _dump(v, indent, out, pad)
     else:
-        out.append(f"{head} {_flat(v)}")
+        out.append(f"{head} {_scalar_at(v, len(head) + 1, indent + 2)}")
 
 
 def dump_yaml(value: Any) -> str:
     """YAML text of a JSON-like value, as ``yaml.dump`` writes it."""
     out: list = []
     _dump(value, 0, out, "")
+    if not isinstance(value, (dict, list, tuple)) and not out[0].startswith(("'", '"')):
+        out.append("...")  # PyYAML ends a plain scalar document explicitly
     return "\n".join(out) + "\n"
 
 
@@ -384,3 +534,25 @@ def do_and_cache_dict(func, cache_format):
             output[key] = value
             cache_path.write_text(dump_yaml(value))
     return output
+
+
+def do_with_pickle_cache(func, pickle_path):
+    """The pickle at ``pickle_path`` if it exists, else ``func()``, written there."""
+    pickle_path = Path(pickle_path)
+    if pickle_path.exists():
+        with open(pickle_path, "rb") as f:
+            return pickle.load(f)
+    pickle_path.parent.mkdir(parents=True, exist_ok=True)
+    result = func()
+    with open(pickle_path, "wb") as f:
+        pickle.dump(result, f)
+    return result
+
+
+def create_pickle_cache(func, pickle_path):
+    """Write ``func()`` to ``pickle_path`` unless the file exists."""
+    pickle_path = Path(pickle_path)
+    if not pickle_path.exists():
+        pickle_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(pickle_path, "wb") as f:
+            pickle.dump(func(), f)

@@ -177,3 +177,42 @@ def test_infer_autoencoding_without_device_raises_when_there_is_no_gpu(experimen
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer_autoencoding.main(["--experiment_dir", str(experiment["exp"]), "--input_wavs_dir",
                                  str(experiment["wavs"]), "--output_dir", str(tmp_path)])
+
+
+def test_infer_e2e_streaming_chunk_matches_the_jax_cli(tmp_path, monkeypatch):
+    """``--streaming_chunk 4`` sends each mel through ``synthesize``'s halo
+    streamer, as the JAX CLI does: on ``small_config("1")`` and a 10-frame
+    mel, the port's files for chunk 0 and 4 are the JAX CLI's within 2e-4
+    (the int16 files read back as floats), and the two differ where the JAX
+    files differ."""
+    import sys
+
+    from hifigan_tpu.cli import infer_e2e as jinfer_e2e
+    from hifigan_tpu_torch.parallel import halo
+
+    h, ckpt = _checkpoint_dir(tmp_path)
+    mels = tmp_path / "mels"
+    mels.mkdir()
+    np.save(mels / "utt.npy", np.random.default_rng(0).standard_normal((80, 10)).astype(np.float32))
+    windows = []
+    vocode = halo.streaming_vocode
+    monkeypatch.setattr(halo, "streaming_vocode",
+                        lambda *args: windows.append(args[3]) or vocode(*args))
+    files = {}
+    for chunk in (0, 4):
+        for side in ("jax", "port"):
+            out = tmp_path / f"{side}{chunk}"
+            argv = ["--input_mels_dir", str(mels), "--output_dir", str(out),
+                    "--checkpoint_file", str(ckpt), "--streaming_chunk", str(chunk)]
+            if side == "jax":
+                monkeypatch.setattr(sys, "argv", ["infer_e2e"] + argv)
+                jinfer_e2e.main()
+            else:
+                infer_e2e.main(argv + ["--device", "cpu"])
+            files[side, chunk] = load_wav(str(out / "utt_generated_e2e.wav"))[0]
+    assert windows == [4]
+    for chunk in (0, 4):
+        assert files["port", chunk].shape == files["jax", chunk].shape == (1, 10 * 16)
+        np.testing.assert_allclose(files["port", chunk], files["jax", chunk], rtol=0, atol=2e-4)
+    np.testing.assert_array_equal(files["port", 0] != files["port", 4],
+                                  files["jax", 0] != files["jax", 4])

@@ -202,7 +202,7 @@ def test_yaml_dump_is_read_back_by_yaml():
 
 @pytest.mark.parametrize("text,line", [("a: !!python/tuple\n- 1\n", 1), ("a: 1\nb: &x 2\n", 2),
                                        ("a:\n  b: [1, 2]\n", 2), ("a: |\n  x\n", 1),
-                                       ("a: 'x\n  y'\n", 1), ("a: 2001-12-14\n", 1),
+                                       ("a: \"x\n  y\"\n", 1), ("a: 2001-12-14\n", 1),
                                        ("a: 1\n b: 2\n", 2), ("---\na: 1\n", 1)])
 def test_yaml_refuses_what_it_does_not_read(text, line):
     with pytest.raises(ValueError, match=f"line {line}:"):

@@ -22,9 +22,10 @@ from hifigan_tpu_torch.train.vocoder import create_train_state
 from tests.torch_port_helpers import folded_pair, small_config, tiny_train_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# yaml and msgpack: the card's machine has neither (the port reads and
-# writes the JAX side's YAML and msgpack itself)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hifigan_tpu", "yaml", "msgpack")
+# yaml, msgpack and pandas: the port reads and writes the JAX side's YAML
+# and msgpack itself and builds its corpus table without pandas, so it
+# needs none of them (chip_smoke.py phase 17 prints which the card has)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hifigan_tpu", "yaml", "msgpack", "pandas")
 
 
 def _port_files():
@@ -45,6 +46,41 @@ def _imported_modules(path):
             yield node.module
 
 
+def _imports_by_name(path):
+    """The module named in every ``import_module(...)`` or ``__import__(...)``
+    call; a name that is not a string literal comes out as ``None``."""
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        name = f.attr if isinstance(f, ast.Attribute) else f.id if isinstance(f, ast.Name) else None
+        if name in ("import_module", "__import__"):
+            arg = node.args[0] if node.args else None
+            literal = isinstance(arg, ast.Constant) and isinstance(arg.value, str)
+            yield arg.value if literal else None
+
+
+def test_port_imports_no_forbidden_module_by_name():
+    """``importlib.import_module`` and ``__import__`` run a module as an
+    import statement does, out of the scan above's sight: in the port and
+    in ``chip_smoke.py`` they name a literal module, never a forbidden one
+    (probe a module's presence with ``importlib.util.find_spec``)."""
+    bad = [(os.path.relpath(f, REPO), m) for f in _port_files() for m in _imports_by_name(f)
+           if m is None or m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_by_name_scan_sees_a_probe_loop(tmp_path):
+    """The scan flags a name passed through a variable, as a probe loop
+    over module names does."""
+    probe = tmp_path / "probe.py"
+    probe.write_text("import importlib\nfor m in ('pandas', 'scipy'):\n"
+                     "    importlib.import_module(m)\n__import__('yaml')\n"
+                     "importlib.import_module('json')\n")
+    assert sorted(_imports_by_name(str(probe)), key=str) == [None, "json", "yaml"]
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """An AST scan: the environment may import jax at interpreter start-up,
     so sys.modules proves nothing."""
@@ -62,10 +98,33 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "hifigan_tpu_torch/parallel/__init__.py", "hifigan_tpu_torch/dsl/stream_fusion.py",
             "hifigan_tpu_torch/train/msgpack.py", "hifigan_tpu_torch/utils/caching.py",
             "hifigan_tpu_torch/utils/pytree.py", "hifigan_tpu_torch/distill/sniffer.py",
-            "hifigan_tpu_torch/cli/infer_autoencoding.py"} <= rel
+            "hifigan_tpu_torch/cli/infer_autoencoding.py", "hifigan_tpu_torch/data/native.py",
+            "hifigan_tpu_torch/data/codecs.py", "hifigan_tpu_torch/data/augmentation.py",
+            "hifigan_tpu_torch/data/complex_parser.py", "hifigan_tpu_torch/data/textgrid.py",
+            "hifigan_tpu_torch/data/multilabel.py", "hifigan_tpu_torch/callbacks/base.py",
+            "hifigan_tpu_torch/callbacks/logging.py", "hifigan_tpu_torch/callbacks/checkpoints.py",
+            "hifigan_tpu_torch/callbacks/visualization.py", "hifigan_tpu_torch/utils/plotting.py",
+            "hifigan_tpu_torch/distill/main.py", "hifigan_tpu_torch/cli/train_sniffers.py",
+            "hifigan_tpu_torch/cli/warm_cache.py"} <= rel
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_matplotlib_only_inside_the_plotting_functions():
+    """The card's machine has no matplotlib: only ``utils/plotting.py``
+    imports it, and only inside its functions, so every module imports
+    there."""
+    plotting = os.path.join(REPO, "hifigan_tpu_torch", "utils", "plotting.py")
+    users = [os.path.relpath(f, REPO) for f in _port_files()
+             if any(m.split(".")[0] == "matplotlib" for m in _imported_modules(f))]
+    assert users == ["hifigan_tpu_torch/utils/plotting.py"]
+    tree = ast.parse(open(plotting, encoding="utf-8").read())
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not any("matplotlib" in ast.dump(n) for n in top)
+    funcs = [n for n in tree.body if isinstance(n, ast.FunctionDef)]
+    inside = [n for f in funcs for n in ast.walk(f) if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert inside and all("matplotlib" in ast.dump(n) for n in inside)
 
 
 def test_entry_points_without_device_raise_when_there_is_no_gpu(monkeypatch, tmp_path):
@@ -184,8 +243,10 @@ def test_stream_graph_rejects_what_the_kernels_do_not_take():
         tsg.check_segment(order)
 
 
-def test_distill_entry_points_without_device_raise_when_there_is_no_gpu(monkeypatch):
+def test_distill_entry_points_without_device_raise_when_there_is_no_gpu(monkeypatch, tmp_path):
     from __graft_entry__ import _tiny_distill_config
+    from hifigan_tpu_torch.cli import train_sniffers
+    from hifigan_tpu_torch.distill import main as distill_main
     from hifigan_tpu_torch.distill.model import DistillModels
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -193,6 +254,19 @@ def test_distill_entry_points_without_device_raise_when_there_is_no_gpu(monkeypa
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistillModels(cfg, labels, weights)
     assert DistillModels(cfg, labels, weights, device="cpu").device == torch.device("cpu")
+    ds = type("D", (), {"label_options_groups": labels, "label_weights_groups": weights})()
+    cfg = dict(cfg, experiment={"name": "x", "version": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distill_main.initialize(cfg, {"train": ds}, logs_base=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_sniffers.train_sniffers({}, {"train": ds}, str(tmp_path))
+    for entry in (distill_main.main, train_sniffers.main):
+        parser_default = [a for a in ast.walk(ast.parse(inspect.getsource(entry)))
+                          if isinstance(a, ast.Call) and getattr(a.func, "attr", "") ==
+                          "add_argument" and ast.literal_eval(a.args[0]) == "--device"]
+        assert len(parser_default) == 1
+        kw = {k.arg: ast.literal_eval(k.value) for k in parser_default[0].keywords}
+        assert kw["default"] == "cuda"
 
 
 def test_msd_conv_takes_plain_version_only_for_cpu_tensors(monkeypatch):
