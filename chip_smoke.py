@@ -132,14 +132,18 @@ into the git-ignored ``build/kernels``), then:
    of one profiled step;
 13. extracts log-mels through ``log_mel_spectrogram(y, MelConfig.from_hparams(
    h, method='pallas'))`` at B=16 x 10 s, 16 x 8192 and 16 x 8305 samples
-   (the kernel's FFT body) with the count set to 0 just before and read just
+   (the kernel's FFT route) with the count set to 0 just before and read just
    after, holds the fused log-mel kernel against its plain version (forward
    within 2e-4 + 1e-4 |plain|, the gradient of a sin-weighted sum within
-   FP32_TOL of its peak), then the same at n_fft 1200, hop 300 (2^4 3 5^2:
-   the FFT body's radix-5 and radix-3 passes) and at n_fft 1100, hop 275
-   (a factor 11: the dense body), each counted per body, and prints kernel,
-   plain and cuFFT times, the bound of the work a log-mel needs (a real FFT
-   per frame) and that of the dense-DFT algorithm;
+   FP32_TOL of its peak, or no further than the plain version's plus that
+   from the gradient with a float64 forward's cotangent), then the same on
+   16 x 10 s at each geometry of
+   ``MEL_GEOMETRIES`` (n_fft = 4 hop: 1200 with radix-5 and 3 passes, 1100
+   with radix 11, 1764 at 44.1 kHz with radix 7, 1028 through Bluestein,
+   4096 at 2 frames a block, 6404 on the dense route), each one's route and
+   frames a block checked against the plan and its launches counted per
+   route, and prints kernel, plain and cuFFT times, the bound of the work a
+   log-mel needs (a real FFT per frame) and that of the dense-DFT algorithm;
 14. serves the distillation autoencoder (``configs/distill.json``, full
    width, fp32, TF32 off, seeded weights): writes an experiment directory
    with the port's writers (``config.yaml`` with ``models.stream_impl``
@@ -2134,11 +2138,14 @@ def logmel_cost(batch: int, frames: int, t: int, cfg) -> dict:
 
 def hold_log_mel(name: str, y: torch.Tensor, got: torch.Tensor, cfg, auto) -> dict:
     """The fused log-mel kernel's output ``got`` for ``y`` against its plain
-    version (forward within 2e-4 + 1e-4 |plain|, the gradient of a
-    sin-weighted sum within FP32_TOL of the plain gradient's peak), each
-    error's share of its limit and both versions' distance from the same
-    log-mel through a float64 rfft; kernel, plain and cuFFT
-    (``method='auto'``) times and the bounds."""
+    version (forward within 2e-4 + 1e-4 |plain|; the gradient of a
+    sin-weighted sum within FP32_TOL of the plain gradient's peak, or, where
+    the plain fp32 forward's own error moves the cotangent further than
+    that, no further from the gradient with the float64 forward's cotangent
+    than the plain version's plus FP32_TOL of the peak), each error's share
+    of its limit and both versions' distance from the same log-mel through a
+    float64 rfft; kernel, plain and cuFFT (``method='auto'``) times and the
+    bounds."""
     from hifigan_tpu_torch.audio.mel import log_mel_spectrogram
     from hifigan_tpu_torch.audio.stft import hann_window
     from hifigan_tpu_torch.ops import logmel
@@ -2164,9 +2171,16 @@ def hold_log_mel(name: str, y: torch.Tensor, got: torch.Tensor, cfg, auto) -> di
     yk, yp = y.clone().requires_grad_(), y.clone().requires_grad_()
     (gk,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel(yk, cfg)).sum(), yk)
     (gp,) = torch.autograd.grad(torch.sin(logmel.fused_log_mel_reference(yp, cfg)).sum(), yp)
+    # the same backward with the exact forward's cotangent: the plain version's own floor
+    yx = y.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(logmel.fused_log_mel_reference(yx, cfg), yx,
+                                torch.cos(exact).float())
     g_err = (gk - gp).abs().max().item()
-    check(g_err <= FP32_TOL * gp.abs().max().item(),
-          f"log-mel {name}: gradient error {g_err} > {FP32_TOL} * {gp.abs().max().item()}")
+    gk_exact, gp_exact = (gk - gx).abs().max().item(), (gp - gx).abs().max().item()
+    g_tol = FP32_TOL * gp.abs().max().item()
+    check(g_err <= g_tol or gk_exact <= g_tol + gp_exact,
+          f"log-mel {name}: gradient error {g_err} > {FP32_TOL} * {gp.abs().max().item()}, and "
+          f"from the exact forward's gradient {gk_exact} > that + the plain version's {gp_exact}")
     with torch.no_grad():
         k_ms = time_ms(lambda: logmel.fused_log_mel(y, cfg), 10)
         p_ms = time_ms(lambda: logmel.fused_log_mel_reference(y, cfg), 10)
@@ -2174,30 +2188,55 @@ def hold_log_mel(name: str, y: torch.Tensor, got: torch.Tensor, cfg, auto) -> di
     cost = logmel_cost(y.shape[0], got.shape[2], y.shape[1], cfg)
     bnd, by = bound_ms(cost["flop"], cost["bytes"], H100_FP32_FLOPS)
     dense_bnd, dense_by = bound_ms(cost["dense_flop"], cost["dense_bytes"], H100_FP32_FLOPS)
-    body = "fft" if logmel.uses_fft(cfg) else "dense"
+    route, length, block_frames = logmel.plan(cfg)
+    how = {"fft": f"FFT route, passes {logmel.fft_passes(length)}, {block_frames} frames a block",
+           "bluestein": (f"Bluestein route at {length} points, passes {logmel.fft_passes(length)}, "
+                         f"{block_frames} frames a block"),
+           "dense": "dense route"}[route]
     print(f"log-mel {name} ({got.shape[2]} frames, n_fft {cfg.n_fft}, hop {cfg.hop_size}, "
-          f"{body} body): max_abs_err {diff.max().item():.3e} ({ratio:.3f} of its limit at "
-          f"worst; from a float64 rfft: kernel {k_exact:.3e}, plain {p_exact:.3e}), gradient "
+          f"{cfg.sampling_rate} Hz, {how}): max_abs_err {diff.max().item():.3e} ({ratio:.3f} of "
+          f"its limit at worst; from a float64 rfft: kernel {k_exact:.3e}, plain {p_exact:.3e}), "
+          f"gradient "
           f"max_abs_err {g_err:.3e} (peak {gp.abs().max().item():.3e}, "
-          f"{g_err / (FP32_TOL * gp.abs().max().item()):.3f} of its limit); kernel {k_ms:.4f} ms plain "
-          f"{p_ms:.4f} ms cuFFT (method='auto') {l_ms:.4f} ms; bound {bnd:.4f} ms ({by}; FFT "
+          f"{g_err / g_tol:.3f} of FP32_TOL of it; from the gradient with the float64 forward's "
+          f"cotangent: kernel {gk_exact:.3e}, plain {gp_exact:.3e}); kernel {k_ms:.4f} ms plain "
+          f"{p_ms:.4f} ms cuFFT (method='auto') {l_ms:.4f} ms (kernel / cuFFT "
+          f"{k_ms / l_ms:.3f}); bound {bnd:.4f} ms ({by}; FFT "
           f"count {cost['flop'] / 1e9:.4f} GFLOP with the filterbank's {cost['nnz']} nonzeros, "
           f"{cost['bytes'] / 1e6:.3f} MB); the dense-DFT algorithm's own bound "
           f"{dense_bnd:.4f} ms ({dense_by}; {cost['dense_flop'] / 1e9:.2f} GFLOP)")
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": bnd, "bound_by": by,
-            "dense_dft_bound_ms": dense_bnd, "body": body, "err": diff.max().item(),
-            "grad_err": g_err, "err_from_float64": k_exact, "plain_err_from_float64": p_exact}
+            "dense_dft_bound_ms": dense_bnd, "route": route, "length": length,
+            "frames_a_block": block_frames, "err": diff.max().item(),
+            "grad_err": g_err, "grad_err_from_float64": gk_exact,
+            "plain_grad_err_from_float64": gp_exact, "err_from_float64": k_exact,
+            "plain_err_from_float64": p_exact}
+
+
+# Phase 13's geometries beside V1's (n_fft = 4 hop, 80 mels): name, n_fft,
+# sampling rate (None: the config's), route, frames a block, what it runs
+MEL_GEOMETRIES = (
+    ("mixed_radix", 1200, None, "fft", 8, "the FFT route's radix-5, 5, 3, 4, 4 passes"),
+    ("radix_11", 1100, None, "fft", 8, "the FFT route's radix-11, 5, 5, 4 passes"),
+    ("radix_7", 1764, 44100, "fft", 4,
+     "the FFT route's radix-7, 7, 3, 3, 4 passes (a 10 ms hop at 44.1 kHz), 4 frames a block"),
+    ("bluestein", 1028, None, "bluestein", 4,
+     "the Bluestein route (hop 257, a prime) at 2160 points, passes 5, 3, 3, 3, 4, 4, 4 frames "
+     "a block"),
+    ("two_frames", 4096, None, "fft", 2, "the FFT route's six radix-4 passes, 2 frames a block"),
+    ("dense", 6404, None, "dense", 0,
+     "the dense-DFT route (hop 1601, a prime: Bluestein's buffers overflow shared memory)"),
+)
 
 
 def logmel_phase(h, dev) -> dict:
     """Phase 13: the fused log-mel kernel through mel extraction
     (``log_mel_spectrogram(y, MelConfig.from_hparams(h, method='pallas'))``)
-    at the V1 geometry (its FFT body), with the counts set to 0 just before
-    and read just after, each batch held by :func:`hold_log_mel`; then, each
-    counted per body just around its extraction, n_fft 1200 / hop 300 (2^4
-    3 5^2: the FFT body's radix-5 and radix-3 passes) and n_fft 1100 / hop
-    275 (a factor 11: the dense body), n_fft = 4 hop as the gate asks, held
-    the same way."""
+    at the V1 geometry (the FFT route), with the counts set to 0 just before
+    and read just after, each batch held by :func:`hold_log_mel`; then each
+    geometry of MEL_GEOMETRIES on 16 x 10 s at its sampling rate, its route
+    and frames a block checked against the plan, its launches counted per
+    route just around its extraction, held the same way."""
     import dataclasses
 
     from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
@@ -2209,33 +2248,39 @@ def logmel_phase(h, dev) -> dict:
     lengths = {"16 x 10 s": 10 * sr, "16 x 8192": SEGMENT, "16 x 8192+113": SEGMENT + 113}
     ys = {name: torch.from_numpy(synthetic_audio(16, t, sr, SEED + 60 + i)).to(dev)
           for i, (name, t) in enumerate(lengths.items())}
+    zero = dict.fromkeys(logmel.BODY_LAUNCHES, 0)
     logmel.LAUNCHES = 0
-    logmel.BODY_LAUNCHES.update(fft=0, dense=0)
+    logmel.BODY_LAUNCHES.update(zero)
     outs = {name: log_mel_spectrogram(y, cfg) for name, y in ys.items()}
     torch.cuda.synchronize()
     launches = logmel.LAUNCHES
-    check(launches == len(ys) and logmel.BODY_LAUNCHES == {"fft": len(ys), "dense": 0},
+    check(launches == len(ys) and logmel.BODY_LAUNCHES == dict(zero, fft=len(ys)),
           f"mel extraction launched the log-mel kernel {launches} times "
-          f"({logmel.BODY_LAUNCHES}), expected {len(ys)}, all on the FFT body")
+          f"({logmel.BODY_LAUNCHES}), expected {len(ys)}, all on the FFT route")
     rows = {name: hold_log_mel(name, y, outs[name], cfg, auto) for name, y in ys.items()}
-    y = ys["16 x 10 s"]
-    body_launches = {}
-    for n_fft, body in ((1200, "fft"), (1100, "dense")):
-        name = f"16 x 10 s, n_fft {n_fft}"
-        geometry = dict(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+    route_launches = {}
+    for i, (key, n_fft, rate, route, frames, _) in enumerate(MEL_GEOMETRIES):
+        geometry = dict(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4,
+                        sampling_rate=rate or sr)
         other = dataclasses.replace(cfg, **geometry)
+        name = (f"16 x 10 s, n_fft {n_fft}" if rate is None
+                else f"16 x 10 s at {rate / 1000:g} kHz, n_fft {n_fft}")
+        y = (ys["16 x 10 s"] if rate is None else torch.from_numpy(
+            synthetic_audio(16, 10 * rate, rate, SEED + 70 + i)).to(dev))
         check(logmel.supports_fused_log_mel(other), f"{other} should be admitted")
-        logmel.BODY_LAUNCHES.update(fft=0, dense=0)
+        check(logmel.plan(other).route == route and logmel.plan(other).frames == frames,
+              f"{name}: plan {logmel.plan(other)}, expected the {route} route at {frames} frames")
+        logmel.BODY_LAUNCHES.update(zero)
         with torch.no_grad():
             got = log_mel_spectrogram(y, other)
         torch.cuda.synchronize()
         took = dict(logmel.BODY_LAUNCHES)
-        check(took == {"fft": 0, "dense": 0, body: 1},
-              f"{name}: launches per body {took}, expected one on the {body} body")
-        body_launches[n_fft] = took[body]
+        check(took == dict(zero, **{route: 1}),
+              f"{name}: launches per route {took}, expected one on the {route} route")
+        route_launches[key] = took[route]
         rows[name] = hold_log_mel(name, y, got, other, dataclasses.replace(auto, **geometry))
-        check(rows[name]["body"] == body, f"{name} took the {rows[name]['body']} body")
-    return {"launches": launches, "body_launches": body_launches,
+        rows[name]["key"] = key
+    return {"launches": launches, "route_launches": route_launches,
             "err": max(r["err"] for r in rows.values()),
             "grad_err": max(r["grad_err"] for r in rows.values()), "rows": rows}
 
@@ -2281,9 +2326,10 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
         "name": "fused_log_mel",
         "route": "cuda",
         "source": "hifigan_tpu_torch/csrc/logmel.cu",
-        "redesigned": ("a mixed-radix (2, 3, 4, 5) Stockham FFT per pair of frames in shared "
-                       "memory and a sparse filterbank (n_fft = 2^a 3^b 5^c); other geometries "
-                       "keep the dense DFT"),
+        "redesigned": ("a mixed-radix (2, 3, 4, 5, 7, 11, 13) Stockham FFT per pair of frames in "
+                       "shared memory, Bluestein for any other n_fft, 8, 4 or 2 frames a block "
+                       "as shared memory allows, and a sparse filterbank; the dense DFT only "
+                       "beyond that budget"),
         "replaces": "hifigan_tpu/ops/pallas/logmel.py:135",
         "launches": mel["launches"],
         "launches_per_step": None,
@@ -2292,31 +2338,31 @@ def per_layer_and_mel_entries(per_layer: dict, train_b5: dict, distill_b5: dict,
         "ms": ext["ms"], "plain_ms": ext["plain_ms"], "bound_ms": ext["bound_ms"],
         "bound_by": ext["bound_by"], "library_ms": ext["library_ms"],
         "per": ("launches: the main path's mel extraction of three batches (16 x 10 s, "
-                "16 x 8192, 16 x 8305 samples at 22,050 Hz); times and bound: the 16 x 10 s "
-                "batch, fp32 (library: method='auto', torch.fft.rfft; bound: the work a log-mel "
-                "needs, a real FFT per frame and the filterbank's nonzeros, while "
-                "rows.dense_dft_bound_ms bounds the dense-DFT algorithm only); max_abs_err: "
-                "the three batches and n_fft 1200 and 1100 (fp32 only: the op "
-                "takes fp32); its backward is the plain composition"),
+                "16 x 8192, 16 x 8305 samples at 22,050 Hz), all on the FFT route; times and "
+                "bound: the 16 x 10 s batch, fp32 (library: method='auto', torch.fft.rfft; "
+                "bound: the work a log-mel needs, a real FFT per frame and the filterbank's "
+                "nonzeros, while rows.dense_dft_bound_ms bounds the dense-DFT algorithm only); "
+                "max_abs_err: the three batches and every geometry of the rows (fp32 only: the "
+                "op takes fp32); its backward is the plain composition"),
         "rows": mel["rows"],
     })
-    for n_fft, name, what in ((1200, "mixed_radix", "the FFT body's radix-5, 5, 3, 4, 4 passes"),
-                              (1100, "dense", "the dense-DFT body (n_fft with a factor 11)")):
-        row = mel["rows"][f"16 x 10 s, n_fft {n_fft}"]
+    for key, n_fft, rate, route, frames, what in MEL_GEOMETRIES:
+        row = next(r for r in mel["rows"].values() if r.get("key") == key)
         kernels.append({
-            "name": f"fused_log_mel.{name}",
+            "name": f"fused_log_mel.{key}",
             "route": "cuda",
             "source": "hifigan_tpu_torch/csrc/logmel.cu",
             "replaces": "hifigan_tpu/ops/pallas/logmel.py:135",
-            "launches": mel["body_launches"][n_fft],
+            "launches": mel["route_launches"][key],
             "launches_per_step": None,
             "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "per": (f"n_fft {n_fft}, hop {n_fft // 4}, 80 mels: {what}; launches: the mel "
-                    "extraction of the 16 x 10 s batch at this geometry, counted per body; "
-                    "times, bound (the work a log-mel needs) and max_abs_err: that batch, fp32 "
-                    "(library: method='auto', torch.fft.rfft)"),
+            "per": (f"n_fft {n_fft}, hop {n_fft // 4}, 80 mels at {rate or 22050} Hz: {what}; "
+                    f"launches: the mel extraction of a 16 x 10 s batch at this geometry, "
+                    f"counted on the {route} route; times, bound (the work a log-mel needs) "
+                    "and max_abs_err: that batch, fp32 (library: method='auto', "
+                    "torch.fft.rfft)"),
         })
     return kernels
 

@@ -36,8 +36,10 @@ def test_library_path_follows_every_included_header(tmp_path):
 
 
 def test_the_conv_kernels_hash_the_shared_core():
-    for name in ("conv_stack", "msd_conv", "resblock_tail", "logmel"):
+    for name in ("conv_stack", "msd_conv", "resblock_tail"):
         assert [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")] == [
             f"{name}.cu", "conv_core.cuh"]
+    assert [p.name for p in _build._sources(_build.CSRC / "logmel.cu")] == [
+        "logmel.cu", "conv_core.cuh", "logmel_plan.cuh"]
     assert [p.name for p in _build._sources(_build.CSRC / "stream_graph.cu")] == [
         "stream_graph.cu"]

@@ -563,7 +563,7 @@ def test_log_mel_fft_body_radix2_sizes_match_plain(card, no_tf32, n_fft):
     from hifigan_tpu_torch.ops import logmel as tlogmel
 
     cfg = MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
-    assert tlogmel.uses_fft(cfg) and tlogmel.fft_passes(n_fft)[0] == 2
+    assert tlogmel.plan(cfg).route == "fft" and tlogmel.fft_passes(n_fft)[0] == 2
     y = (torch.randn((3, 20 * n_fft + 77), device=card,
                      generator=torch.Generator(device=card).manual_seed(n_fft)) * 0.3).clamp(-1, 1)
     got = tlogmel.fused_log_mel(y, cfg)
@@ -572,16 +572,19 @@ def test_log_mel_fft_body_radix2_sizes_match_plain(card, no_tf32, n_fft):
     assert bool(((got - want).abs() <= 2e-4 + 1e-4 * want.abs()).all())
 
 
-def _log_mel_body_matches_plain(card, n_fft: int, body: str):
-    """The body ``body`` at n_fft / n_fft // 4: one launch of it, forward and
-    gradient against the plain version."""
+def _log_mel_body_matches_plain(card, n_fft: int, body: str, frames: int = 8):
+    """The route ``body`` at n_fft / n_fft // 4 (``frames`` a block on an FFT
+    route): one launch of it, forward and gradient against the plain
+    version."""
     from hifigan_tpu_torch.audio.mel import MelConfig
     from hifigan_tpu_torch.ops import logmel as tlogmel
 
     cfg = MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
     assert tlogmel.supports_fused_log_mel(cfg)
-    y = (torch.randn((3, 9000), device=card, generator=torch.Generator(device=card).manual_seed(3))
-         * 0.3).clamp(-1, 1)
+    assert tlogmel.plan(cfg).route == body and tlogmel.plan(cfg).frames == (
+        0 if body == "dense" else frames)
+    y = (torch.randn((3, max(9000, 3 * n_fft)), device=card,
+                     generator=torch.Generator(device=card).manual_seed(3)) * 0.3).clamp(-1, 1)
     launches = dict(tlogmel.BODY_LAUNCHES)
     yk = y.clone().requires_grad_()
     got = tlogmel.fused_log_mel(yk, cfg)
@@ -596,10 +599,12 @@ def _log_mel_body_matches_plain(card, n_fft: int, body: str):
     assert (gk - gp).abs().max().item() <= 1e-4 * gp.abs().max().item()
 
 
-def test_log_mel_dense_body_matches_plain(card, no_tf32):
-    """A geometry whose n_fft has a prime factor above 5 (1100 / 275) keeps
+@pytest.mark.parametrize("n_fft", [6404, 12000])
+def test_log_mel_dense_body_matches_plain(card, no_tf32, n_fft):
+    """A geometry whose buffers overflow shared memory even at 2 frames a
+    block (6404 = 4 x 1601 through Bluestein, 12000 with a pass plan) keeps
     the dense-DFT body: forward and gradient against the plain version."""
-    _log_mel_body_matches_plain(card, 1100, "dense")
+    _log_mel_body_matches_plain(card, n_fft, "dense")
 
 
 @pytest.mark.parametrize("n_fft", [1200, 960, 800])
@@ -608,6 +613,30 @@ def test_log_mel_mixed_radix_body_matches_plain(card, no_tf32, n_fft):
     radix-3 and radix-5 passes: forward and gradient against the plain
     version."""
     _log_mel_body_matches_plain(card, n_fft, "fft")
+
+
+@pytest.mark.parametrize("n_fft,frames", [(1100, 8), (1764, 4), (1716, 4), (448, 8)])
+def test_log_mel_prime_radix_body_matches_plain(card, no_tf32, n_fft, frames):
+    """n_fft with a factor 7, 11 or 13 (1100 = 2^2 5^2 11, 1764 = 2^2 3^2
+    7^2, 1716 = 2^2 3 11 13, 448 = 2^6 7) takes the FFT body's radix-7, 11
+    and 13 passes: forward and gradient against the plain version."""
+    _log_mel_body_matches_plain(card, n_fft, "fft", frames)
+
+
+@pytest.mark.parametrize("n_fft,frames", [(808, 8), (1028, 4), (1088, 4), (2068, 2)])
+def test_log_mel_bluestein_body_matches_plain(card, no_tf32, n_fft, frames):
+    """n_fft with a prime factor above 13 (808 = 8 x 101, 1028 = 4 x 257,
+    1088 = 2^6 17, 2068 = 4 x 11 x 47) takes the Bluestein route at 8, 4 and
+    2 frames a block: forward and gradient against the plain version."""
+    _log_mel_body_matches_plain(card, n_fft, "bluestein", frames)
+
+
+@pytest.mark.parametrize("n_fft,frames", [(1764, 4), (5600, 4), (3200, 2), (4096, 2)])
+def test_log_mel_fft_body_at_fewer_frames_matches_plain(card, no_tf32, n_fft, frames):
+    """n_fft whose buffers leave no room for two blocks an SM at 8 frames
+    runs the FFT body at 4 or 2: forward and gradient against the plain
+    version."""
+    _log_mel_body_matches_plain(card, n_fft, "fft", frames)
 
 
 @pytest.mark.parametrize("n,t,c,k,s,p", [(6, 14560, 12, 31, 1, 15), (4, 8192, 1, 4, 2, 2),

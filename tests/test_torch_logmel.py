@@ -103,10 +103,37 @@ def test_cuda_backward_recomputes_the_plain_composition():
 C3 = np.float32(0.866025403784438647)  # sin(2 pi / 3), the kernel's constant
 C5 = [np.float32(v) for v in (0.309016994374947424, -0.809016994374947424)]  # cos(2 pi k / 5)
 S5 = [np.float32(v) for v in (0.951056516295153572, 0.587785252292473129)]  # sin(2 pi k / 5)
+# cos and sin of 2 pi m / p, m = 1 .. (p - 1) / 2, rounded to fp32 (LOGMEL_ROT7, 11, 13)
+ROT = {p: tuple([np.float32(f(2 * np.pi * m / p)) for m in range(1, (p - 1) // 2 + 1)]
+                for f in (np.cos, np.sin)) for p in (7, 11, 13)}
+
+
+def _butterfly_prime(v):
+    """The kernel's 7-, 11- and 13-point DFTs: pairs r, p - r summed (t) and
+    differenced (u), X_k = v_0 + sum t cos - i sum u sin, X_{p-k} with + i."""
+    p = len(v)
+    h = (p - 1) // 2
+    cos, sin = ROT[p]
+    t = [v[r] + v[p - r] for r in range(1, h + 1)]
+    u = [v[r] - v[p - r] for r in range(1, h + 1)]
+    out = [None] * p
+    out[0] = v[0]
+    for tr in t:
+        out[0] = out[0] + tr
+    for k in range(1, h + 1):
+        c, sn = v[0], np.complex64(0)
+        for r in range(1, h + 1):
+            m = r * k % p
+            mm = m if m <= h else p - m
+            c = c + cos[mm - 1] * t[r - 1]
+            sn = sn + (sin[mm - 1] if m <= h else -sin[mm - 1]) * u[r - 1]
+        out[k], out[p - k] = c - 1j * sn, c + 1j * sn
+    return out
 
 
 def _butterfly(v):
-    """The kernel's 2-, 3-, 4- and 5-point DFTs with constant rotations."""
+    """The kernel's 2-, 3-, 4- and 5-point DFTs with constant rotations, and
+    its 7-, 11- and 13-point ones."""
     if len(v) == 2:
         return [v[0] + v[1], v[0] - v[1]]
     if len(v) == 3:
@@ -116,6 +143,8 @@ def _butterfly(v):
     if len(v) == 4:
         a, b, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
         return [a + c, b - 1j * d, a - c, b + 1j * d]
+    if len(v) > 5:
+        return _butterfly_prime(v)
     t1, t2 = v[1] + v[4], v[2] + v[3]
     t3, t4 = -1j * (v[1] - v[4]), -1j * (v[2] - v[3])
     a1, a2 = v[0] + C5[0] * t1 + C5[1] * t2, v[0] + C5[1] * t1 + C5[0] * t2
@@ -123,23 +152,13 @@ def _butterfly(v):
     return [v[0] + (t1 + t2), a1 + b1, a2 + b2, a2 - b2, a1 - b1]
 
 
-def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
-    """The kernel's FFT body in numpy complex64: frames 2q and 2q+1
-    windowed into one complex sequence, the mixed-radix Stockham passes of
-    ``fft_passes`` (butterfly j reads j + r n/R, twiddles by the table's
-    entry r (j % ns) n/(ns R), writes (j // ns) ns R + j % ns + r ns), the
-    real split into both frames' power (Z[(n - k) mod n]), the sparse
-    filterbank, the log clamp. Returns (B, mels, F)."""
-    window, twiddle, idx, vals = tlogmel.fft_tables(cfg)
-    tw = (twiddle[:, 0] + 1j * twiddle[:, 1]).astype(np.complex64)
-    yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
-    n, hop = cfg.n_fft, cfg.hop_size
-    fr = np.stack([yp.numpy()[:, f * hop:f * hop + n] for f in range(frames)], axis=1) * window
-    if frames % 2:
-        fr = np.concatenate([fr, np.zeros_like(fr[:, :1])], axis=1)
-    src = (fr[:, 0::2] + 1j * fr[:, 1::2]).astype(np.complex64)
+def _stockham(src: np.ndarray, tw: np.ndarray, passes: list) -> np.ndarray:
+    """The kernel's Stockham passes over the last axis (butterfly j reads j +
+    r n/R, twiddles by the table's entry r (j % ns) n/(ns R), writes (j //
+    ns) ns R + j % ns + r ns)."""
+    n = src.shape[-1]
     ns = 1
-    for radix in tlogmel.fft_passes(n):
+    for radix in passes:
         j = np.arange(n // radix)
         jm = j % ns
         r_step = (n // radix) // ns
@@ -153,42 +172,93 @@ def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
         assert not np.isnan(dst).any()  # the pass writes every element once
         src, ns = dst, ns * radix
     assert ns == n
+    return src
+
+
+def _complex(table: np.ndarray) -> np.ndarray:
+    return (table[:, 0] + 1j * table[:, 1]).astype(np.complex64)
+
+
+def _emulate_fft_body(y: np.ndarray, cfg) -> np.ndarray:
+    """The kernel's FFT body in numpy complex64 on the route and frames a
+    block of ``plan``: each block's tile staged with zeros past the
+    signal's end, frames 2q and 2q+1 windowed into one complex sequence, the
+    mixed-radix Stockham passes of ``fft_passes`` (Bluestein: the sequence
+    times the chirp, zero-padded to the plan's length, the passes, the
+    product with the filter conjugated, the passes again, X[k] = c[k]
+    conj(R[k])), the real split into both frames' power (Z[(n - k) mod n]),
+    the sparse filterbank, the log clamp. Returns (B, mels, F)."""
+    route, length, block_frames = tlogmel.plan(cfg)
+    assert route in ("fft", "bluestein") and block_frames in (8, 4, 2)
+    tab = tlogmel.fft_tables(cfg)
+    tw = _complex(tab.twiddle)
+    passes = tlogmel.fft_passes(length)
+    yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
+    n, hop = cfg.n_fft, cfg.hop_size
+    padded = -(-frames // block_frames) * block_frames  # frames of whole blocks
+    sig = np.zeros((y.shape[0], (padded - 1) * hop + n), dtype=np.float32)
+    sig[:, :yp.shape[1]] = yp.numpy()
+    fr = np.stack([sig[:, f * hop:f * hop + n] for f in range(padded)], axis=1) * tab.window
+    src = (fr[:, 0::2] + 1j * fr[:, 1::2]).astype(np.complex64)
+    if route == "bluestein":
+        chirp, filt = _complex(tab.chirp), _complex(tab.filter)
+        a = np.zeros(src.shape[:-1] + (length,), dtype=np.complex64)
+        a[..., :n] = src * chirp
+        r = _stockham(np.conj(_stockham(a, tw, passes) * filt), tw, passes)
+        src = chirp * np.conj(r[..., :n])
+    else:
+        assert length == n
+        src = _stockham(src, tw, passes)
     k = np.arange(n // 2 + 1)
     zk, zn = src[..., k], src[..., (n - k) % n]
     pa = 0.25 * ((zk.real + zn.real) ** 2 + (zk.imag - zn.imag) ** 2)
     pb = 0.25 * ((zk.real - zn.real) ** 2 + (zk.imag + zn.imag) ** 2)
     power = np.stack([pa, pb], axis=2).reshape(y.shape[0], -1, n // 2 + 1)[:, :frames]
-    mel = np.stack([power[..., k0:k0 + cnt] @ vals[off:off + cnt] for k0, cnt, off in idx.T],
-                   axis=1)
+    mel = np.stack([power[..., k0:k0 + cnt] @ tab.mel_vals[off:off + cnt]
+                    for k0, cnt, off in tab.mel_idx.T], axis=1)
     return np.log(np.maximum(mel, tlogmel.LOG_CLIP)).astype(np.float32)
 
 
-@pytest.mark.parametrize("n_fft", [1024, 1200])
+def _geometry(n_fft: int) -> dict:
+    return dict(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+
+
+@pytest.mark.parametrize("n_fft", [1024, 1200, 1100, 1764, 1028])
 def test_fft_body_emulation_matches_the_pallas_kernel_in_interpret_mode(n_fft):
     """The FFT body's arithmetic against the JAX kernel (interpret mode) at
-    the V1 geometry and at n_fft 1200 / hop 300 (radix 5, 5, 3, 4, 4),
-    within that test's 2e-4 + 1e-4 |ref|."""
-    geometry = dict(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
+    the V1 geometry, n_fft 1200 / hop 300 (radix 5, 5, 3, 4, 4), 1100 / 275
+    (radix 11, 5, 5, 4), 1764 / 441 (radix 7, 7, 3, 3, 4) and 1028 / 257
+    (Bluestein at 2160), within that test's 2e-4 + 1e-4 |ref|."""
     y = _wave(1, 2 * n_fft + 113, 4)
-    want = np.asarray(jax_fused_log_mel(jnp.asarray(y), dataclasses.replace(JAX_MATMUL, **geometry),
-                                        interpret=True))
-    got = _emulate_fft_body(y, tmel.MelConfig(**geometry))
+    want = np.asarray(jax_fused_log_mel(
+        jnp.asarray(y), dataclasses.replace(JAX_MATMUL, **_geometry(n_fft)), interpret=True))
+    got = _emulate_fft_body(y, tmel.MelConfig(**_geometry(n_fft)))
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
-PASSES = {512: [2, 4, 4, 4, 4], 1024: [4] * 5, 2048: [2] + [4] * 5, 1200: [5, 5, 3, 4, 4],
-          960: [5, 3, 4, 4, 4], 800: [5, 5, 2, 4, 4], 1536: [3, 2, 4, 4, 4, 4]}
+# n_fft: (route, transform length, frames a block, passes of that length)
+PLANS = {
+    512: ("fft", 512, 8, [2, 4, 4, 4, 4]), 1024: ("fft", 1024, 8, [4] * 5),
+    2048: ("fft", 2048, 4, [2] + [4] * 5), 1200: ("fft", 1200, 8, [5, 5, 3, 4, 4]),
+    960: ("fft", 960, 8, [5, 3, 4, 4, 4]), 800: ("fft", 800, 8, [5, 5, 2, 4, 4]),
+    1536: ("fft", 1536, 8, [3, 2, 4, 4, 4, 4]), 1100: ("fft", 1100, 8, [11, 5, 5, 4]),
+    1764: ("fft", 1764, 4, [7, 7, 3, 3, 4]), 1716: ("fft", 1716, 4, [13, 11, 3, 4]),
+    1028: ("bluestein", 2160, 4, [5, 3, 3, 3, 4, 4]),
+    3200: ("fft", 3200, 2, [5, 5, 2, 4, 4, 4]), 4096: ("fft", 4096, 2, [4] * 6),
+}
 
 
-@pytest.mark.parametrize("n_fft", list(PASSES))
+@pytest.mark.parametrize("n_fft", list(PLANS))
 def test_fft_body_emulation_matches_rfft(n_fft):
-    """Each pass plan (radix 2 then 4; radix 4 only; radix 5 and 3 first),
-    an odd frame count: the emulated log-mel against rfft's power through
-    the dense filterbank, within 2e-4 + 1e-4 |ref|."""
-    cfg = tmel.MelConfig(n_fft=n_fft, win_size=n_fft, hop_size=n_fft // 4)
-    assert tlogmel.uses_fft(cfg)
-    assert tlogmel.fft_passes(n_fft) == PASSES[n_fft]
+    """Each pass plan (radix 2 then 4; radix 4 only; radix 5 and 3 first;
+    radix 13, 11 and 7; Bluestein; 4 and 2 frames a block), an odd frame count:
+    the emulated log-mel against rfft's power through the dense filterbank,
+    within 2e-4 + 1e-4 |ref|."""
+    cfg = tmel.MelConfig(**_geometry(n_fft))
+    route, length, frames, passes = PLANS[n_fft]
+    assert tlogmel.plan(cfg) == (route, length, frames)
+    assert tlogmel.fft_passes(length) == passes
     y = _wave(2, 7 * n_fft // 4 + 37, n_fft)
     yp, frames = tlogmel._pad_crop(torch.from_numpy(y), cfg)
     assert frames % 2 == 1
@@ -199,7 +269,7 @@ def test_fft_body_emulation_matches_rfft(n_fft):
     np.testing.assert_allclose(_emulate_fft_body(y, cfg), want.numpy(), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("radix", [2, 3, 4, 5])
+@pytest.mark.parametrize("radix", [2, 3, 4, 5, 7, 11, 13])
 def test_butterflies_are_the_dft(radix):
     """Each butterfly with its constant rotations is the radix-point DFT."""
     v = np.random.default_rng(radix).standard_normal((2, radix, 6)).astype(np.float32)
@@ -209,16 +279,32 @@ def test_butterflies_are_the_dft(radix):
 
 
 def test_fft_plan_and_shared_memory():
-    """The pass plan of n_fft = 2^a 3^b 5^c and the body's shared memory in
-    bytes: the signal tile and two buffers of 4 complex sequences (76.8 KB
-    at n_fft 1200); no plan for another prime factor."""
-    assert tlogmel.fft_passes(1100) is None and tlogmel.fft_passes(7 * 64) is None
+    """The pass plan of n_fft = 2^a 3^b 5^c 7^d 11^e 13^f (none for a prime
+    factor above 13), Bluestein's length, and the body's shared memory in
+    bytes: the signal tile and two buffers of frames / 2 complex sequences
+    (90,000 at n_fft 1200 and 8 frames, two blocks an SM). The frames a
+    block: the most that let two blocks share an SM (1764 and 1028 at 4,
+    3200 and 4096 at 2), else the most that fit one block (5,600 at 4)."""
+    assert tlogmel.fft_passes(1100) == [11, 5, 5, 4] and tlogmel.fft_passes(7 * 64) == [7, 4, 4, 4]
+    assert tlogmel.fft_passes(17 * 64) is None and tlogmel.fft_passes(7 * 64, primes=False) is None
     assert tlogmel.fft_passes(1) is None and tlogmel.fft_passes(4) == [4]
-    cfg = tmel.MelConfig(n_fft=1200, win_size=1200, hop_size=300)
-    assert tlogmel.fft_smem_bytes(cfg) == 4 * (7 * 300 + 1200) + 2 * 4 * 1200 * 8 == 90000
-    big = tmel.MelConfig(n_fft=3200, win_size=3200, hop_size=800)  # 2^7 5^2: buffers too large
-    assert tlogmel.fft_passes(3200) is not None and not tlogmel.uses_fft(big)
-    assert tlogmel.fft_smem_bytes(big) > tlogmel.SMEM_LIMIT
+    assert tlogmel.bluestein_length(1028) == 2160 and tlogmel.bluestein_length(257) == 540
+    cfg = tmel.MelConfig(**_geometry(1200))
+    assert tlogmel.fft_smem_bytes(cfg, 8, 1200) == 4 * (7 * 300 + 1200) + 2 * 4 * 1200 * 8 == 90000
+    assert 90000 <= tlogmel.SMEM_TWO_BLOCKS == 115712 and tlogmel.plan(cfg).frames == 8
+    for n_fft, frames in ((1764, 4), (3200, 2), (4096, 2)):
+        big = tmel.MelConfig(**_geometry(n_fft))
+        assert tlogmel.fft_smem_bytes(big, 2 * frames, n_fft) > tlogmel.SMEM_TWO_BLOCKS
+        assert tlogmel.fft_smem_bytes(big, frames, n_fft) <= tlogmel.SMEM_TWO_BLOCKS
+        assert tlogmel.plan(big) == ("fft", n_fft, frames)
+    one_block = tmel.MelConfig(**_geometry(5600))  # 2^5 5^2 7: two blocks fit at no count
+    assert tlogmel.fft_smem_bytes(one_block, 2, 5600) > tlogmel.SMEM_TWO_BLOCKS
+    assert tlogmel.fft_smem_bytes(one_block, 4, 5600) <= tlogmel.SMEM_LIMIT
+    assert tlogmel.plan(one_block) == ("fft", 5600, 4)
+    blue = tmel.MelConfig(**_geometry(1028))
+    assert tlogmel.fft_smem_bytes(blue, 4, 2160) == 4 * (3 * 257 + 1028 + 1 + 2 * 2 * 2160 * 2)
+    assert tlogmel.fft_smem_bytes(blue, 8, 2160) > tlogmel.SMEM_TWO_BLOCKS
+    assert tlogmel.plan(blue) == ("bluestein", 2160, 4)
 
 
 @pytest.mark.parametrize("mel_scale,norm", [("htk", None), ("slaney", "slaney")])
@@ -237,13 +323,97 @@ def test_sparse_filterbank_rebuilds_the_dense_one(mel_scale, norm):
 
 
 def test_body_choice_follows_n_fft():
-    """n_fft = 2^a 3^b 5^c whose buffers fit shared memory takes the FFT
-    body (1024, 1200, 2048); any other geometry the gate admits keeps the
-    dense one (1100 = 2^2 5^2 11; 4096, whose buffers do not fit)."""
-    assert tlogmel.uses_fft(tmel.MelConfig())
-    assert tlogmel.uses_fft(tmel.MelConfig(n_fft=2048, win_size=2048, hop_size=512))
-    mixed = tmel.MelConfig(n_fft=1200, win_size=1200, hop_size=300)
-    assert tlogmel.supports_fused_log_mel(mixed) and tlogmel.uses_fft(mixed)
-    dense = tmel.MelConfig(n_fft=1100, win_size=1100, hop_size=275)
-    assert tlogmel.supports_fused_log_mel(dense) and not tlogmel.uses_fft(dense)
-    assert not tlogmel.uses_fft(tmel.MelConfig(n_fft=4096, win_size=4096, hop_size=1024))
+    """Every admitted geometry whose buffers fit shared memory at 2 frames a
+    block takes an FFT: n_fft = 2^a 3^b 5^c 7^d 11^e 13^f the "fft" route
+    (1024, 2048, 1200, 1100 = 2^2 5^2 11, 4096, 11000), any other
+    n_fft the "bluestein" route (1028 = 2^2 257, 6248 = 2^3 11 71 at 2
+    frames); beyond the budget the "dense" route, for a pass plan (12000,
+    above 11,068) and for Bluestein (6404 = 2^2 1601, above 6,248)."""
+    routes = {1024: "fft", 2048: "fft", 1200: "fft", 1100: "fft", 4096: "fft", 11000: "fft",
+              1028: "bluestein", 6248: "bluestein", 12000: "dense", 6404: "dense"}
+    for n_fft, route in routes.items():
+        cfg = tmel.MelConfig(**_geometry(n_fft))
+        assert tlogmel.supports_fused_log_mel(cfg) and tlogmel.plan(cfg).route == route, n_fft
+    assert tlogmel.plan(tmel.MelConfig(**_geometry(11000))).frames == 2
+    assert tlogmel.plan(tmel.MelConfig(**_geometry(6248))).frames == 2
+    assert tlogmel.plan(tmel.MelConfig(**_geometry(12000))) == ("dense", 12000, 0)
+
+
+_SHIM = r"""
+#include "logmel_plan.cuh"
+extern "C" {
+int plan_passes(int n, int primes, int* radix) {
+  logmel_plan::FftPlan p;
+  if (!logmel_plan::fft_plan(n, &p, primes != 0)) return -1;
+  for (int i = 0; i < p.passes; ++i) radix[i] = p.radix[i];
+  return p.passes;
+}
+int bluestein_length(int n) { return logmel_plan::bluestein_length(n); }
+long long smem_bytes(int hop, int n, int len, int frames) {
+  return logmel_plan::smem_floats(hop, n, len, frames) * 4;
+}
+float rotation(int p, int row, int m) {
+  static const float r7[2][3] = {LOGMEL_ROT7}, r11[2][5] = {LOGMEL_ROT11},
+                     r13[2][6] = {LOGMEL_ROT13};
+  return p == 7 ? r7[row][m - 1] : p == 11 ? r11[row][m - 1] : r13[row][m - 1];
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def device_plan(tmp_path_factory):
+    """``csrc/logmel_plan.cuh`` (the kernel entry's plan) compiled with the
+    host's C++ compiler and loaded with ctypes."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from hifigan_tpu_torch.ops import _build
+
+    d = tmp_path_factory.mktemp("logmel_plan")
+    (d / "shim.cpp").write_text(_SHIM)
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a host C++ compiler is needed to read the kernel's plan"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{_build.CSRC}",
+                    str(d / "shim.cpp"), "-o", str(d / "libplan.so")], check=True)
+    lib = ctypes.CDLL(str(d / "libplan.so"))
+    lib.smem_bytes.restype = ctypes.c_longlong
+    lib.rotation.restype = ctypes.c_float
+    return lib
+
+
+GEOMETRIES = sorted(set(PLANS) | {448, 1088, 2068, 4100, 5600, 6248, 6252, 6404, 11000, 11068,
+                                  11072, 12000})
+
+
+@pytest.mark.parametrize("n_fft", GEOMETRIES)
+def test_host_and_device_plans_agree(device_plan, n_fft):
+    """For every geometry of these tests, ``csrc/logmel_plan.cuh`` compiled
+    on the host and ``ops/logmel.py`` give the same pass plans (with and
+    without radix 7-13), Bluestein length and shared memory at 8, 4 and 2
+    frames."""
+    import ctypes
+
+    cfg = tmel.MelConfig(**_geometry(n_fft))
+    for n in (n_fft, tlogmel.bluestein_length(n_fft)):
+        for primes in (True, False):
+            radix = (ctypes.c_int * 16)()
+            count = device_plan.plan_passes(n, int(primes), radix)
+            want = tlogmel.fft_passes(n, primes=primes)
+            assert (None if count < 0 else list(radix[:count])) == want, (n, primes)
+    assert device_plan.bluestein_length(n_fft) == tlogmel.bluestein_length(n_fft)
+    # the FFT's length with or without Bluestein (a dense geometry's too)
+    length = n_fft if tlogmel.fft_passes(n_fft) else tlogmel.bluestein_length(n_fft)
+    for frames in tlogmel.FRAME_CHOICES:
+        assert device_plan.smem_bytes(cfg.hop_size, n_fft, length, frames) == \
+            tlogmel.fft_smem_bytes(cfg, frames, length)
+
+
+def test_rotation_tables_are_cos_and_sin(device_plan):
+    """The radix-7, 11 and 13 butterflies' constants as the compiler reads
+    them are cos and sin of 2 pi m / p rounded to fp32 (the emulation's)."""
+    for p, (cos, sin) in ROT.items():
+        for m in range(1, (p - 1) // 2 + 1):
+            assert np.float32(device_plan.rotation(p, 0, m)) == cos[m - 1]
+            assert np.float32(device_plan.rotation(p, 1, m)) == sin[m - 1]
