@@ -57,7 +57,13 @@ into the git-ignored ``build/kernels``), then:
    BF16_REL_TOL of the plain tensor's peak: every layer's output, and dx,
    dW, db for a loss on every feature map, on the logits only, and with
    ``weight_grads=False``; prints per-pass times of kernel, plain version
-   and the cuDNN conv chain, and the bound;
+   and the cuDNN conv chain, and the bound; then the same holds for the
+   zone form: V1's zone chain (layers 2-5 as banded grouped layers on the
+   time-folded layout, ``zone_grouped_layer``) at the three scales, layer
+   1's output folded as input (scales 1 and 2 end every layer on a partial
+   row: its fold-padding lanes must be exact zeros), with per-pass times
+   beside the std form's and cuDNN's grouped chain over the same layers and
+   the bound from the banded MACs;
 6. holds the port's average pool (the MSD's waveform pool, a DSL pool)
    against the CPU, forward and input gradient; trains V1 at full size
    (B=16, 8192 samples, seeded weights, seeded
@@ -76,7 +82,13 @@ into the git-ignored ``build/kernels``), then:
    per step; then (6b) TRAIN_STEPS steps in bench.py's bf16 training
    precision (``disc_compute_dtype`` and ``gen_compute_dtype``
    'bfloat16'): finite metrics, every group moving, the derived launches
-   per step, ms per step;
+   per step, ms per step; then (6c) the same under ``msd_conv_impl=
+   'fused_zoned'`` and under ``disc_fused: true``: step 1 at HOLD_BATCH
+   against the same config's CPU step (gradients and parameters, beside its
+   jittered floor), TRAIN_STEPS steps in turns with the 'fused_stack' step
+   (finite metrics, every group and scale 0's u moving, the conv-stack
+   launches and the zone layers' against the derived counts, ms per step),
+   and the zoned step 1's MSD feature loss beside the std form's;
 7. runs ``python -m hifigan_tpu_torch.cli.train`` on synthetic wavs for
    two steps that write ``g_*``/``do_*``, then again, resuming from them;
 8. holds the stream-graph kernels (``fused_stream_graph``: forward, dx,
@@ -779,11 +791,87 @@ def cudnn_chain(xc: torch.Tensor, specs, ws, bs):
     """The stack conv by conv in cuDNN, (N, C, T) layout: a yardstick only."""
     h, outs = xc, []
     for sp, w, b in zip(specs, ws, bs):
-        h = F.conv1d(h, w, b, stride=sp.stride, padding=sp.pad_l, groups=sp.groups)
+        if sp.pad_l != sp.pad_r:  # a zone layer's rows: padded on the right to its last row
+            h = F.conv1d(F.pad(h, (sp.pad_l, sp.pad_r)), w, b, stride=sp.stride, groups=sp.groups)
+        else:
+            h = F.conv1d(h, w, b, stride=sp.stride, padding=sp.pad_l, groups=sp.groups)
         if sp.slope != 1.0:
             h = F.leaky_relu(h, sp.slope)
         outs.append(h)
     return outs
+
+
+def hold_stack(cs, x0, ks, bs, specs, tag: str, tol_rel: float, gen, errs: dict,
+               library: bool = True):
+    """One stack's kernels against their plain versions over input x0: every
+    layer's output, and dx, dW, db for a loss on every feature map, on the
+    logits only, and with ``weight_grads=False`` (each backward pair over
+    the kernel's own saved outputs; two backward runs give the same bits).
+    A layer with a lane mask must store exact zeros at its masked lanes.
+    Returns the cotangents drawn (for the timing)."""
+    dtype = x0.dtype
+    dev = x0.device
+
+    def held(what, got, want, kind):
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{tag} {what}: {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"{tag} {what}: non-finite")
+        check(err <= tol_rel * peak, f"{tag} {what}: error {err} > {tol_rel} * {peak}")
+        errs[dtype][kind] = max(errs[dtype][kind], err)
+        return err, peak
+
+    x = x0.clone().requires_grad_()
+    kk = [k.clone().requires_grad_() for k in ks]
+    bk = [b.clone().requires_grad_() for b in bs]
+    ys = cs.fused_conv_stack(x, kk, bk, specs)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        plain = cs.fused_conv_stack_reference(x0, ks, bs, specs)
+    fwd_err = max(held(f"y{l}", yk, yp, "fwd")[0] for l, (yk, yp) in enumerate(zip(ys, plain)))
+    for l, (yk, sp) in enumerate(zip(ys, specs)):
+        mask = cs.lane_mask(sp, yk.shape[1], dev)
+        if mask is not None:
+            check(bool((yk.detach()[:, mask == 0] == 0).all()),
+                  f"{tag} y{l}: a masked fold-padding lane is not zero")
+    lib_text = ""
+    if library:
+        with torch.no_grad():
+            lib = cudnn_chain(x0.transpose(1, 2).contiguous(), specs,
+                              [k.permute(2, 1, 0) for k in ks], [b.to(dtype) for b in bs])
+        lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                      for a, b in zip(lib, plain))
+        lib_text = f" (cudnn chain {lib_err:.3e})"
+    dys = [(torch.randn(yk.shape, device=dev, generator=gen) * 0.01).to(dtype) for yk in ys]
+    saved = [yk.detach() for yk in ys]
+    for case, live, wg in (("every fmap", range(len(ys)), True),
+                           ("logits only", [len(ys) - 1], True),
+                           ("weight_grads=False", range(len(ys)), False)):
+        cot = [dys[l] if l in live else None for l in range(len(ys))]
+        ys_c = ys if wg else cs.fused_conv_stack(x, kk, bk, specs, weight_grads=False)
+        outs = [ys_c[l] for l in live]
+        got = torch.autograd.grad(outs, [x, *kk, *bk], [cot[l] for l in live], retain_graph=True)
+        torch.cuda.synchronize()
+        if wg:  # a second backward gives the same bits: no float atomics
+            again = torch.autograd.grad(outs, [x, *kk, *bk], [cot[l] for l in live],
+                                        retain_graph=True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{tag} {case}: two backward runs differ")
+        dx, dks, dbs = cs.fused_conv_stack_backward_reference(x0, ks, saved, cot, specs,
+                                                              weight_grads=wg)
+        held(f"{case} dx", got[0], dx, "bwd_dx")
+        if wg:
+            for l, (gk, gb) in enumerate(zip(got[1:1 + len(ks)], got[1 + len(ks):])):
+                if dks[l] is not None:
+                    held(f"{case} dW{l}", gk, dks[l], "bwd_dw")
+                    held(f"{case} db{l}", gb, dbs[l], "bwd_dw")
+        else:
+            check(all(not g.any() for g in got[1:]), f"{tag}: weight_grads=False gave dW != 0")
+    print(f"{tag}: fwd max_abs_err {fwd_err:.3e}{lib_text}; dx/dW/db held for every fmap, "
+          f"logits only, weight_grads=False; two backward runs bit-identical")
+    return dys
 
 
 def stack_phase(msd, dev) -> dict:
@@ -808,114 +896,191 @@ def stack_phase(msd, dev) -> dict:
                     k0, b0 = d.convs[0].kernel_nwc(dtype=dtype)
                     x0 = leaky_relu(conv1d(y[:n, :, None].to(dtype), k0, b0,
                                            padding=d.convs[0].padding)).contiguous()
-                tag = f"scale {scale} T={x0.shape[1]} N={n} {str(dtype)[6:]}"
-
-                def held(what, got, want, kind):
-                    err = (got.float() - want.float()).abs().max().item()
-                    peak = want.float().abs().max().item()
-                    check(got.shape == want.shape and got.dtype == want.dtype,
-                          f"{tag} {what}: {tuple(got.shape)} {got.dtype}")
-                    check(bool(torch.isfinite(got).all()), f"{tag} {what}: non-finite")
-                    check(err <= tol_rel * peak, f"{tag} {what}: error {err} > {tol_rel} * {peak}")
-                    errs[dtype][kind] = max(errs[dtype][kind], err)
-                    return err, peak
-
+                tag = f"conv stack scale {scale} T={x0.shape[1]} N={n} {str(dtype)[6:]}"
                 for l, shape in enumerate(stack_shapes(specs, x0)):
-                    print(f"conv stack {tag} layer {l + 1} plan: "
+                    print(f"{tag} layer {l + 1} plan: "
                           f"{plan_text(shape, dtype, ('fwd', 'dx', 'dw'))}")
-                x = x0.clone().requires_grad_()
-                kk = [k.clone().requires_grad_() for k in ks]
-                bk = [b.clone().requires_grad_() for b in bs]
-                ys = cs.fused_conv_stack(x, kk, bk, specs)
-                torch.cuda.synchronize()
-                with torch.no_grad():
-                    plain = cs.fused_conv_stack_reference(x0, ks, bs, specs)
-                    lib = cudnn_chain(x0.transpose(1, 2).contiguous(), specs,
-                                      [k.permute(2, 1, 0) for k in ks], [b.to(dtype) for b in bs])
-                fwd_err = max(held(f"y{l}", yk, yp, "fwd")[0] for l, (yk, yp) in
-                              enumerate(zip(ys, plain)))
-                lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
-                              for a, b in zip(lib, plain))
-                dys = [(torch.randn(yk.shape, device=dev, generator=gen) * 0.01).to(dtype)
-                       for yk in ys]
-                saved = [yk.detach() for yk in ys]
-                for case, live, wg in (("every fmap", range(len(ys)), True),
-                                       ("logits only", [len(ys) - 1], True),
-                                       ("weight_grads=False", range(len(ys)), False)):
-                    cot = [dys[l] if l in live else None for l in range(len(ys))]
-                    ys_c = ys if wg else cs.fused_conv_stack(x, kk, bk, specs, weight_grads=False)
-                    outs = [ys_c[l] for l in live]
-                    got = torch.autograd.grad(outs, [x, *kk, *bk], [cot[l] for l in live],
-                                              retain_graph=True)
-                    torch.cuda.synchronize()
-                    if wg:  # a second backward gives the same bits: no float atomics
-                        again = torch.autograd.grad(outs, [x, *kk, *bk],
-                                                    [cot[l] for l in live], retain_graph=True)
-                        torch.cuda.synchronize()
-                        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                              f"{tag} {case}: two backward runs differ")
-                    dx, dks, dbs = cs.fused_conv_stack_backward_reference(
-                        x0, ks, saved, cot, specs, weight_grads=wg)
-                    held(f"{case} dx", got[0], dx, "bwd_dx")
-                    if wg:
-                        for l, (gk, gb) in enumerate(zip(got[1:1 + len(ks)], got[1 + len(ks):])):
-                            if dks[l] is not None:
-                                held(f"{case} dW{l}", gk, dks[l], "bwd_dw")
-                                held(f"{case} db{l}", gb, dbs[l], "bwd_dw")
-                    else:
-                        check(all(not g.any() for g in got[1:]),
-                              f"{tag}: weight_grads=False gave dW != 0")
-                print(f"conv stack {tag}: fwd max_abs_err {fwd_err:.3e} "
-                      f"(cudnn chain {lib_err:.3e}); "
-                      f"dx/dW/db held for every fmap, logits only, weight_grads=False; two "
-                      f"backward runs bit-identical")
+                dys = hold_stack(cs, x0, ks, bs, specs, tag, tol_rel, gen, errs)
                 if n == max(STACK_BATCHES):
                     per_scale.append(time_stack(cs, x0, ks, bs, specs, dys, dtype, scale))
-                del x, kk, bk, ys, saved, dys
+                del dys
     return {"errs": errs, "per_scale": per_scale}
 
 
-def time_stack(cs, x0, ks, bs, specs, dys, dtype, scale) -> dict:
+def zone_phase(msd, dev) -> dict:
+    """Phase 5, the zone form: the V1 zone chain (layers 2-5, banded grouped
+    layers on the time-folded layout) through the conv-stack kernels against
+    their plain versions at the three scales (scales 1 and 2 end each layer
+    on a partial row, whose fold-padding lanes the lane mask zeroes), layer
+    1's output folded as input, N=2 and N=16, fp32 (TF32 off) within
+    FP32_TOL and bf16 within BF16_REL_TOL; times at N=16 beside the same
+    layers' std form and cuDNN's grouped chain. The chain's tables come from
+    the model's own ``DiscriminatorS.zone_chain``."""
+    from hifigan_tpu_torch.ops import conv_stack as cs
+    from hifigan_tpu_torch.ops.conv import avg_pool1d, conv1d, leaky_relu
+
+    wav = torch.from_numpy(synthetic_audio(max(STACK_BATCHES), SEGMENT, 22050, SEED + 2)).to(dev)
+    errs = {torch.float32: {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0},
+            torch.bfloat16: {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}}
+    per_scale, geoms = [], set()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_rel = FP32_TOL if dtype == torch.float32 else BF16_REL_TOL
+        y = wav
+        for scale, d in enumerate(msd.discriminators):
+            if scale:
+                y = avg_pool1d(y[..., None], 4, 2, padding=2)[..., 0]
+            specs, ks, bs = stack_of(d, dtype)
+            for n in STACK_BATCHES:
+                with torch.no_grad():
+                    k0, b0 = d.convs[0].kernel_nwc(dtype=dtype)
+                    x0 = leaky_relu(conv1d(y[:n, :, None].to(dtype), k0, b0,
+                                           padding=d.convs[0].padding)).contiguous()
+                    (x1,) = cs.fused_conv_stack_reference(x0, ks[:1], bs[:1], specs[:1])
+                    ((g, idx),) = [(g, idx) for g, idx in d.runs(True) if g]
+                    zks, zbs, zspecs, f_entry, _, _ = d.zone_chain(
+                        list(zip(ks, bs)), idx, x1.shape[1])
+                    zks, zbs = ([v.contiguous() for v in vs] for vs in (zks, zbs))
+                    xz = cs.fold_group_zones(x1, g, f_entry)
+                sspecs, sks, sbs = ([v[i] for i in idx] for v in (specs, ks, bs))
+                geoms.update(cs.layer_key("fwd", c, sp)[1:] for c, sp in
+                             zip([xz.shape[2]] + [sp.c_out for sp in zspecs[:-1]], zspecs))
+                partial = [f"{sp.lane_valid}/{sp.lane_period}" if sp.lane_period else "full"
+                           for sp in zspecs]
+                tag = (f"zone chain scale {scale} T={x1.shape[1]} rows={xz.shape[1]} N={n} "
+                       f"{str(dtype)[6:]}")
+                for l, shape in enumerate(stack_shapes(zspecs, xz)):
+                    print(f"{tag} layer {l + 2} (kk {zspecs[l].kernel}, stride "
+                          f"{zspecs[l].stride}, last row {partial[l]}) plan: "
+                          f"{plan_text(shape, dtype, ('fwd', 'dx', 'dw'))}")
+                dys = hold_stack(cs, xz, zks, zbs, zspecs, tag, tol_rel, gen, errs,
+                                 library=False)
+                if n == max(STACK_BATCHES):
+                    row = time_stack(cs, xz, zks, zbs, zspecs, dys, dtype, scale, "zone chain")
+                    x1c = x1.contiguous()
+                    sdys = [(torch.randn((n, t_out, sp.c_out), device=dev, generator=gen)
+                             * 0.01).to(dtype) for sp, t_out in
+                            zip(sspecs, _out_lens(x1c.shape[1], sspecs))]
+                    std = time_stack(cs, x1c, sks, sbs, sspecs, sdys, dtype, scale,
+                                     "std form of the zone layers")
+                    row["std"] = {k: std[k] for k in ("flop", "bytes", "ms", "plain_ms",
+                                                      "library_ms", "bound_ms")}
+                    row["banded_over_grouped"] = row["flop"] / std["flop"]
+                    print(f"zone chain scale {scale} {str(dtype)[6:]}: banded MACs "
+                          f"{row['banded_over_grouped']:.3f}x the grouped layers'; per layer "
+                          + ", ".join(f"{a / b:.3f}x" for a, b in zip(
+                              _layer_flops(zspecs, xz), _layer_flops(sspecs, x1c)))
+                          + "; bound (the grouped layers' work) fwd/dx/dW+db "
+                          + " / ".join(f"{std['bound_ms'][k]:.4f}" for k in std["bound_ms"])
+                          + " ms, the banded tables' "
+                          + " / ".join(f"{row['bound_ms'][k]:.4f}" for k in row["bound_ms"])
+                          + " ms")
+                    per_scale.append(row)
+                del dys
+    return {"errs": errs, "per_scale": per_scale, "geoms": geoms}
+
+
+def _out_lens(t: int, specs) -> list:
+    from hifigan_tpu_torch.ops.conv_stack import out_len
+
+    lens = []
+    for sp in specs:
+        t = out_len(t, sp)
+        lens.append(t)
+    return lens
+
+
+def _layer_flops(specs, x: torch.Tensor) -> list:
+    n, t, c = x.shape
+    out = []
+    for sp, t_out in zip(specs, _out_lens(t, specs)):
+        out.append(2 * n * t_out * sp.c_out * sp.kernel * (c // sp.groups))
+        c = sp.c_out
+    return out
+
+
+def dw_work(cs, x0, ks, bs, specs, dys) -> list:
+    """Each layer's weight-gradient work as the kernels' backward meets it:
+    (input, output, map cotangent, fp32 upstream, kernel, spec), the
+    upstream from the kernels' own dx over the kernels' forward."""
+    with torch.no_grad():
+        ys = cs.fused_conv_stack(x0, ks, bs, specs)
+    work, up = [], None
+    for l in range(len(specs) - 1, -1, -1):
+        x_in = x0 if l == 0 else ys[l - 1]
+        work.append((x_in, ys[l], dys[l], up, ks[l], specs[l]))
+        _, _, dz = cs._layer_dw(*work[-1])
+        up = cs._layer_dx(x_in, ys[l], dys[l], up, ks[l], specs[l], dz) if l else None
+    return work
+
+
+def cudnn_dw_work(work, dtype) -> list:
+    """:func:`dw_work` in cuDNN's layout: (cotangent at the activation's
+    output, output, input padded as :func:`cudnn_chain` pads it, weight, spec)."""
+    out = []
+    for x_in, y, dy, up, k, sp in work:
+        g = dy.float() + up if up is not None else dy
+        xc = x_in.transpose(1, 2).contiguous()
+        if sp.pad_l != sp.pad_r:
+            xc = F.pad(xc, (sp.pad_l, sp.pad_r))
+        out.append((g.to(dtype).transpose(1, 2).contiguous(), y.transpose(1, 2).contiguous(), xc,
+                    k.permute(2, 1, 0).contiguous(), sp))
+    return out
+
+
+def cudnn_dw(g, y, xc, w, sp) -> tuple:
+    """One layer's dW and db in cuDNN from the cotangent at its activation."""
+    dz = g if sp.slope == 1.0 else torch.ops.aten.leaky_relu_backward(g, y, sp.slope, True)
+    pad = 0 if sp.pad_l != sp.pad_r else sp.pad_l
+    _, dw, db = torch.ops.aten.convolution_backward(dz, xc, w, [w.shape[0]], [sp.stride], [pad],
+                                                    [1], False, [0], sp.groups,
+                                                    [False, True, True])
+    return dw, db
+
+
+def time_stack(cs, x0, ks, bs, specs, dys, dtype, scale, what: str = "conv stack") -> dict:
     """CUDA-event times of one pass of kernel, plain version and cuDNN chain
     (mean of 10 after a warm-up: 3 moved the kernel's time by up to 32%
-    between two runs on one card)."""
+    between two runs on one card). dx: a backward that needs the input's
+    gradient alone; dW+db: each layer's weight-gradient work alone, on the
+    inputs the backward hands it (:func:`dw_work`)."""
     reps = 10
     x = x0.clone().requires_grad_()
-    kk = [k.clone().requires_grad_() for k in ks]
-    bk = [b.clone().requires_grad_() for b in bs]
     with torch.no_grad():
         k_fwd = time_ms(lambda: cs.fused_conv_stack(x0, ks, bs, specs), reps)
         p_fwd = time_ms(lambda: cs.fused_conv_stack_reference(x0, ks, bs, specs), reps)
-    ys = cs.fused_conv_stack(x, kk, bk, specs)
-    k_bwd = time_ms(lambda: torch.autograd.grad(ys, [x, *kk, *bk], dys, retain_graph=True), reps)
     ys_dx = cs.fused_conv_stack(x, ks, bs, specs)
     k_dx = time_ms(lambda: torch.autograd.grad(ys_dx, [x], dys, retain_graph=True), reps)
-    saved = [y.detach() for y in ys]
-    p_bwd = time_ms(lambda: cs.fused_conv_stack_backward_reference(x0, ks, saved, dys, specs), reps)
+    saved = [y.detach() for y in ys_dx]
     p_dx = time_ms(lambda: cs.fused_conv_stack_backward_reference(
         x0, ks, saved, dys, specs, weight_grads=False), reps)
+    work = dw_work(cs, x0, ks, bs, specs, dys)
+    k_dw = time_ms(lambda: [cs._layer_dw(*w) for w in work], reps)
+    p_dw = time_ms(lambda: [cs.reference_dw(x_in, cs.reference_dz(y, dy, up, sp), k, sp)
+                            for x_in, y, dy, up, k, sp in work], reps)
     xc = x0.transpose(1, 2).contiguous().requires_grad_()
-    ws = [k.permute(2, 1, 0).contiguous().requires_grad_() for k in ks]
-    lb = [b.to(dtype).requires_grad_() for b in bs]
+    ws = [k.permute(2, 1, 0).contiguous() for k in ks]
+    lb = [b.to(dtype) for b in bs]
     dys_c = [d.transpose(1, 2).contiguous() for d in dys]
     with torch.no_grad():
         l_fwd = time_ms(lambda: cudnn_chain(xc, specs, ws, lb), reps)
-    outs = cudnn_chain(xc, specs, ws, lb)
-    l_bwd = time_ms(lambda: torch.autograd.grad(outs, [xc, *ws, *lb], dys_c, retain_graph=True),
-                    reps)
-    outs_dx = cudnn_chain(xc, specs, [w.detach() for w in ws], [b.detach() for b in lb])
+    outs_dx = cudnn_chain(xc, specs, ws, lb)
     l_dx = time_ms(lambda: torch.autograd.grad(outs_dx, [xc], dys_c, retain_graph=True), reps)
+    work_c = cudnn_dw_work(work, dtype)
+    with torch.no_grad():
+        l_dw = time_ms(lambda: [cudnn_dw(*w) for w in work_c], reps)
+    del work, work_c
     flop, b_fwd, b_dx, b_dw = stack_cost(specs, x0)
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else FP32_MMA_FLOPS
     row = {"scale": scale, "T": x0.shape[1], "flop": flop, "bytes": {"fwd": b_fwd, "bwd_dx": b_dx,
                                                                       "bwd_dw": b_dw},
-           "ms": {"fwd": k_fwd, "bwd_dx": k_dx, "bwd_dw": k_bwd - k_dx},
-           "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx, "bwd_dw": p_bwd - p_dx},
-           "library_ms": {"fwd": l_fwd, "bwd_dx": l_dx, "bwd_dw": l_bwd - l_dx}}
+           "ms": {"fwd": k_fwd, "bwd_dx": k_dx, "bwd_dw": k_dw},
+           "plain_ms": {"fwd": p_fwd, "bwd_dx": p_dx, "bwd_dw": p_dw},
+           "library_ms": {"fwd": l_fwd, "bwd_dx": l_dx, "bwd_dw": l_dw}}
     for kind in ("fwd", "bwd_dx", "bwd_dw"):
         bound = max(flop / peak, row["bytes"][kind] / H100_BYTES_PER_S) * 1e3
         row.setdefault("bound_ms", {})[kind] = bound
-        print(f"conv stack scale {scale} T={x0.shape[1]} N={x0.shape[0]} {str(dtype)[6:]} {kind}: "
+        print(f"{what} scale {scale} T={x0.shape[1]} N={x0.shape[0]} {str(dtype)[6:]} {kind}: "
               f"kernel {row['ms'][kind]:.3f} ms plain {row['plain_ms'][kind]:.3f} ms "
               f"cudnn {row['library_ms'][kind]:.3f} ms bound {row['bound_ms'][kind]:.4f} ms "
               f"({flop / 1e9:.1f} GFLOP, {row['bytes'][kind] / 1e6:.1f} MB; "
@@ -1020,15 +1185,18 @@ class jittered_torch_convs:
             setattr(F, n, real)
 
 
-def v1_step_reference(h) -> dict:
+def v1_step_reference(h, msd_impl: str = "xla", jitter: bool = True) -> dict:
     """The CPU side of phases 6 and 11's step-1 hold, computed once: one
     ``make_train_step`` step of V1 at HOLD_BATCH x segment_size on the CPU
-    with ``msd_conv_impl='xla'`` from the seeded state, and the same step
-    with every conv output jittered by JITTER (the floor)."""
+    with ``msd_conv_impl=msd_impl`` (``'xla'``; phase 6c: the zoned form's
+    plain version) from the seeded state, and with ``jitter`` the same step
+    with every conv output jittered by JITTER (the floor: CPU rounding
+    noise, which phase 6c reads from phase 6's). The config's other keys
+    (``disc_fused``) hold as given."""
     from hifigan_tpu_torch.config import AttrDict
     from hifigan_tpu_torch.train.vocoder import create_train_state, make_train_step
 
-    hx = AttrDict(h, msd_conv_impl="xla", batch_size=HOLD_BATCH)
+    hx = AttrDict(h, msd_conv_impl=msd_impl, batch_size=HOLD_BATCH)
     batch = {"audio": synthetic_audio(HOLD_BATCH, h["segment_size"], h["sampling_rate"],
                                       SEED + 30)}
     step_fn = make_train_step(hx)
@@ -1039,18 +1207,59 @@ def v1_step_reference(h) -> dict:
     before = {g: [p.detach().clone() for p in getattr(state, g).parameters()] for g in V1_GROUPS}
     state, metrics = step_fn(state, batch)
     want = v1_snapshot(state)
-    state = create_train_state(hx, seed=SEED, device="cpu")
-    for g in V1_GROUPS:
-        getattr(state, g).load_state_dict(start[g])
-    with jittered_torch_convs(JITTER, SEED + 31):
-        state, _ = step_fn(state, batch)
-    floor = v1_snapshot(state)
+    floor = None
+    if jitter:
+        state = create_train_state(hx, seed=SEED, device="cpu")
+        for g in V1_GROUPS:
+            getattr(state, g).load_state_dict(start[g])
+        with jittered_torch_convs(JITTER, SEED + 31):
+            state, _ = step_fn(state, batch)
+        floor = v1_snapshot(state)
     metrics = {k: v.item() for k, v in metrics.items()}
     print(f"V1 step-1 reference on the CPU (B={HOLD_BATCH} x {h['segment_size']}, "
-          f"msd_conv_impl='xla', {torch.get_num_threads()} threads) and its jittered floor in "
+          f"msd_conv_impl={msd_impl!r}, disc_fused {bool(h.get('disc_fused', False))}, "
+          f"{torch.get_num_threads()} threads){' and its jittered floor' if jitter else ''} in "
           f"{time.perf_counter() - t0:.3f} s; metrics {json.dumps(metrics)}")
     return {"start": start, "batch": batch, "names": names, "before": before, "want": want,
             "floor": floor, "lrs": {g: h["learning_rate"] for g in V1_GROUPS}}
+
+
+def hold_step1(h, dev, ref: dict, step_fn, what: str, cpu_what: str,
+               floor: dict | None = None) -> tuple[dict, dict]:
+    """Step 1 at HOLD_BATCH from the seeded state on the card against the
+    CPU step ``ref`` (:func:`v1_step_reference`): the gradients (Adam first
+    moments) leaf by leaf within STEP_GRAD_TOL and the updated parameters
+    group by group within STEP_UPDATE_TOL, printed beside the CPU step's own
+    floor (``floor``, an earlier reading, where ``ref`` has none). Returns
+    (the reading, the floor)."""
+    from hifigan_tpu_torch.train.vocoder import create_train_state
+
+    hold = create_train_state(h, seed=SEED, device=dev)
+    for g in V1_GROUPS:
+        getattr(hold, g).load_state_dict(ref["start"][g])
+    hold, _ = step_fn(hold, ref["batch"])
+    got = v1_snapshot(hold)
+    del hold
+    upd = held_update(ref["names"], ref["lrs"], ref["before"], got, ref["want"])
+    whose = "phase 6's step"
+    if ref["floor"] is not None:
+        floor = held_update(ref["names"], ref["lrs"], ref["before"], ref["floor"], ref["want"])
+        whose = "the CPU"
+    del got
+    print(update_line(f"V1 step 1 at B={HOLD_BATCH}, {what} on the card vs {cpu_what} on the "
+                      "CPU", upd))
+    print(update_line(f"V1 step 1 on the CPU with its conv outputs jittered by {JITTER:g} vs "
+                      f"{whose} (the noise floor)", floor))
+    n_leaves = sum(len(v) for v in ref["names"].values())
+    check(upd["leaves"] == n_leaves, f"{upd['leaves']} leaves held of {n_leaves} parameters")
+    check(upd["grad_rel"] <= STEP_GRAD_TOL,
+          f"V1 step 1 gradients, {what} on the card vs the CPU: {upd['grad_leaf']} "
+          f"{upd['grad_rel']} > {STEP_GRAD_TOL}")
+    check(upd["update_rel"] <= STEP_UPDATE_TOL,
+          f"V1 step 1 parameters, {what} on the card vs the CPU: {upd['update_group']} "
+          f"{upd['update_rel']} > {STEP_UPDATE_TOL}")
+    torch.cuda.empty_cache()
+    return upd, floor
 
 
 def train_phase(h, dev, ref: dict, msd_impl: str = "auto") -> dict:
@@ -1073,30 +1282,8 @@ def train_phase(h, dev, ref: dict, msd_impl: str = "auto") -> dict:
         layers = 7  # MSD layers 1-6 + conv_post, one launch each per pass
         per_step = {k: v * n_scales * layers for k, v in PASSES_PER_STEP.items()}
     step_fn = make_train_step(h)
-
-    # step 1's gradients and updated parameters against the same step on the CPU
-    hold = create_train_state(h, seed=SEED, device=dev)
-    for g in V1_GROUPS:
-        getattr(hold, g).load_state_dict(ref["start"][g])
-    hold, _ = step_fn(hold, ref["batch"])
-    got = v1_snapshot(hold)
-    del hold
-    upd = held_update(ref["names"], ref["lrs"], ref["before"], got, ref["want"])
-    floor = held_update(ref["names"], ref["lrs"], ref["before"], ref["floor"], ref["want"])
-    del got
-    print(update_line(f"V1 step 1 at B={HOLD_BATCH}, msd_conv_impl={msd_impl!r} on the card vs "
-                      "msd_conv_impl='xla' on the CPU", upd))
-    print(update_line(f"V1 step 1 on the CPU with its conv outputs jittered by {JITTER:g} vs the "
-                      "CPU (the noise floor)", floor))
-    n_leaves = sum(len(v) for v in ref["names"].values())
-    check(upd["leaves"] == n_leaves, f"{upd['leaves']} leaves held of {n_leaves} parameters")
-    check(upd["grad_rel"] <= STEP_GRAD_TOL,
-          f"V1 step 1 gradients, {msd_impl} on the card vs the CPU: {upd['grad_leaf']} "
-          f"{upd['grad_rel']} > {STEP_GRAD_TOL}")
-    check(upd["update_rel"] <= STEP_UPDATE_TOL,
-          f"V1 step 1 parameters, {msd_impl} on the card vs the CPU: {upd['update_group']} "
-          f"{upd['update_rel']} > {STEP_UPDATE_TOL}")
-    torch.cuda.empty_cache()
+    upd, floor = hold_step1(h, dev, ref, step_fn, f"msd_conv_impl={msd_impl!r}",
+                            "msd_conv_impl='xla'")
     batches = [{"audio": synthetic_audio(h["batch_size"], h["segment_size"], h["sampling_rate"],
                                          SEED + 10 + i)} for i in range(TRAIN_STEPS)]
     state = create_train_state(h, seed=SEED, device=dev)
@@ -1192,6 +1379,223 @@ def train_bf16_phase(h, dev) -> dict:
           f"{per_step}; metrics step 1 {json.dumps(history[0])}, step {TRAIN_STEPS} "
           f"{json.dumps(history[-1])}")
     return {"step_ms": ms, "launches": launches, "per_step": per_step}
+
+
+def b2_passes(fused: bool) -> dict:
+    """Passes of each conv-stack layer in one V1 train step, per MSD scale.
+    Unfused: PASSES_PER_STEP. With ``disc_fused`` the D update traverses the
+    2B rows once, forward and backward with weight gradients (the stack's
+    input needs dx for conv_0's weights), and the G update once more, its
+    backward dx alone (the weights frozen; the real half's maps enter the
+    feature loss through the same call): 2 forward, 2 dx, 1 dW."""
+    return {"fwd": 2, "bwd_dx": 2, "bwd_dw": 1} if fused else dict(PASSES_PER_STEP)
+
+
+def b2_launches_per_step(msd, zoned: bool, fused: bool, zone_only: bool = False) -> dict:
+    """Launches of the conv-stack kernels in one V1 train step, from the
+    step's structure: every layer of each scale's runs (``DiscriminatorS.
+    runs``; with ``zone_only`` only the zone chains') times its passes."""
+    layers = sum(len(idx) for d in msd.discriminators for g, idx in d.runs(zoned)
+                 if g or not zone_only)
+    return {k: v * layers for k, v in b2_passes(fused).items()}
+
+
+def zone_launches(geoms: set) -> dict:
+    """The conv-stack launches counted so far at the zone layers' geometries."""
+    from hifigan_tpu_torch.ops import conv_stack as cs
+
+    out = {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}
+    for (kind, *geom), n in cs.LAUNCHES_BY_LAYER.items():
+        if tuple(geom) in geoms:
+            out[kind] += n
+    return out
+
+
+def msd_feature_losses(h, state_a, state_b, batch: dict) -> tuple[float, float]:
+    """The MSD's feature loss of two states with one set of weights on the
+    first step's inputs (the generator's output for the batch): the divisor
+    of a zone map counts its fold-padding lanes."""
+    from hifigan_tpu_torch.audio.mel import MelConfig, log_mel_spectrogram
+    from hifigan_tpu_torch.models.losses import feature_loss
+
+    with torch.no_grad():
+        y = torch.as_tensor(batch["audio"], device=state_a.device)
+        y_hat = state_a.generator(log_mel_spectrogram(y, MelConfig.from_hparams(h)))[:, 0, :]
+        out = []
+        for st in (state_a, state_b):
+            _, _, fr, fg = st.msd(y, y_hat)
+            out.append(feature_loss(fr, fg).item())
+    return out[0], out[1]
+
+
+V1_FORMS = (("fused_zoned", {"msd_conv_impl": "fused_zoned"}, "fused_zoned"),
+            ("disc_fused", {"disc_fused": True}, "xla"))
+
+
+def v1_forms_phase(h, dev, geoms: set, floor: dict) -> dict:
+    """Phase 6c: V1 train steps at full size under the two discriminator
+    forms phase 6 does not take: ``msd_conv_impl='fused_zoned'`` (the zone
+    chains through the conv-stack kernels) and ``disc_fused: true`` (real
+    and fake as one 2B batch). For each: step 1 at HOLD_BATCH against the
+    same config's step on the CPU (:func:`hold_step1`; the zoned form's CPU
+    step takes the plain stack, the fused form's 'xla'; printed beside
+    phase 6's noise floor ``floor``); then TRAIN_STEPS
+    steps at B=16 x 8192 in turns with phase 6's 'fused_stack' step from the
+    same weights, the counts set to 0 just before and read around each of
+    the form's steps: finite metrics, every group and scale 0's spectral u
+    moving, the conv-stack launches (and the zone layers' alone) against the
+    derived count; prints ms per step of both and, for the zoned form, step
+    1's MSD feature loss beside the std form's."""
+    from hifigan_tpu_torch.config import AttrDict
+    from hifigan_tpu_torch.ops import conv_stack as cs
+    from hifigan_tpu_torch.train.vocoder import create_train_state, make_train_step
+
+    out = {}
+    h_std = AttrDict(h, msd_conv_impl="auto")
+    std_fn = make_train_step(h_std)
+    for form, over, cpu_impl in V1_FORMS:
+        hf = AttrDict({**h, "msd_conv_impl": "auto", **over})
+        ref = v1_step_reference(hf, msd_impl=cpu_impl, jitter=False)
+        step_fn = make_train_step(hf)
+        upd, _ = hold_step1(hf, dev, ref, step_fn, form, f"{form} (msd_conv_impl={cpu_impl!r})",
+                            floor)
+        del ref
+        batches = [{"audio": synthetic_audio(h["batch_size"], h["segment_size"],
+                                             h["sampling_rate"], SEED + 10 + i)}
+                   for i in range(TRAIN_STEPS)]
+        state = create_train_state(hf, seed=SEED, device=dev)
+        std = create_train_state(h_std, seed=SEED, device=dev)
+        zoned = hf["msd_conv_impl"] == "fused_zoned"
+        fused = bool(hf.get("disc_fused", False))
+        per_step = b2_launches_per_step(state.msd, zoned, fused)
+        zone_per_step = b2_launches_per_step(state.msd, zoned, fused, zone_only=True)
+        fl = msd_feature_losses(h, state, std, batches[0]) if zoned else None
+        before = {g: [p.detach().clone() for p in getattr(state, g).parameters()]
+                  for g in V1_GROUPS}
+        u0 = {k: v.clone() for k, v in state.spectral_msd.items() if v.numel() > 1}
+        step_ms, std_ms, history, launches_per_step, zone_per = [], [], [], [], []
+        launches = {"fwd": 0, "bwd_dx": 0, "bwd_dw": 0}
+        zone_total = dict(launches)
+        cs.reset_launches()
+        for batch in batches:  # the form's step, then the std step, in turns
+            counts, zcounts = cs.launches(), zone_launches(geoms)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            n = {k: v - counts[k] for k, v in cs.launches().items()}
+            zn = {k: v - zcounts[k] for k, v in zone_launches(geoms).items()}
+            launches_per_step.append(n)
+            zone_per.append(zn)
+            for k in launches:
+                launches[k] += n[k]
+                zone_total[k] += zn[k]
+            history.append({k: v.item() for k, v in metrics.items()})
+            t0 = time.perf_counter()
+            std, _ = std_fn(std, batch)
+            torch.cuda.synchronize()
+            std_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, (m, n, zn) in enumerate(zip(history, launches_per_step, zone_per)):
+            check(all(np.isfinite(v) for v in m.values()), f"{form} step {i + 1}: non-finite {m}")
+            check(n == per_step, f"{form} step {i + 1}: conv-stack launches {n}, derived "
+                                 f"{per_step}")
+            check(zn == zone_per_step, f"{form} step {i + 1}: zone-layer launches {zn}, derived "
+                                       f"{zone_per_step}")
+        for g, params in before.items():
+            moved = sum(not torch.equal(a, b) for a, b in
+                        zip(params, getattr(state, g).parameters()))
+            check(moved == len(params), f"{form} {g}: {len(params) - moved} parameters did not "
+                                        "move")
+        check(any(not torch.equal(u, state.spectral_msd[k]) for k, u in u0.items()),
+              f"{form}: scale 0's spectral u did not move")
+        ms, ms_std = float(np.median(step_ms[2:])), float(np.median(std_ms[2:]))
+        print(f"train V1 {form} B={h['batch_size']}x{h['segment_size']} fp32 (TF32 off): step ms "
+              f"{[round(t, 3) for t in step_ms]}, median of steps 3-{TRAIN_STEPS}: {ms:.3f} ms; in "
+              f"turns with 'fused_stack' {[round(t, 3) for t in std_ms]}, median {ms_std:.3f} ms "
+              f"({ms / ms_std:.3f}x); conv-stack launches per step {per_step}, zone layers "
+              f"{zone_per_step}; metrics step 1 {json.dumps(history[0])}, step {TRAIN_STEPS} "
+              f"{json.dumps(history[-1])}")
+        if fl is not None:
+            print(f"train V1 {form} step 1's MSD feature loss {fl[0]:.6f} against 'fused_stack' "
+                  f"{fl[1]:.6f} from the same weights and inputs ({fl[0] / fl[1]:.6f}x): the "
+                  "zone maps' means count their zeroed fold-padding lanes (scales 1 and 2)")
+            check(0.95 * fl[1] < fl[0] < fl[1], f"{form}: feature loss {fl[0]} against {fl[1]}")
+        out[form] = {"step_ms": ms, "std_step_ms": ms_std, "launches": launches,
+                     "per_step": per_step, "zone_launches": zone_total,
+                     "zone_per_step": zone_per_step, "update": upd, "update_floor": floor,
+                     "feature_loss": fl}
+        del state, std
+        torch.cuda.empty_cache()
+    return out
+
+
+def zone_entries(zone: dict, forms: dict) -> list:
+    """The B2 zone form's rows of the kernels line: per V1 train step with
+    ``msd_conv_impl='fused_zoned'`` (fp32, PASSES_PER_STEP passes of the
+    chain at each scale), from phase 5's per-pass times at N=16."""
+    rows = [r for r in zone["per_scale"] if r["dtype"] == "float32"]
+    rows_bf = [r for r in zone["per_scale"] if r["dtype"] == "bfloat16"]
+    run = forms["fused_zoned"]
+    entries = []
+
+    def bound(rs, kind, peak, form=None):
+        """(ms, by) over the passes of one step: the grouped layers' work
+        (the std form's MACs and bytes), or with form=None the banded tables'."""
+        n = PASSES_PER_STEP[kind]
+        rs = [r[form] if form else r for r in rs]
+        ops = sum(n * r["flop"] for r in rs) / peak * 1e3
+        nbytes = sum(n * r["bytes"][kind] for r in rs) / H100_BYTES_PER_S * 1e3
+        return max(ops, nbytes), "operations" if ops >= nbytes else "bytes"
+
+    for kind, line in (("fwd", 374), ("bwd_dx", 596), ("bwd_dw", 596)):
+        n = PASSES_PER_STEP[kind]
+        bound_ms, bound_by = bound(rows, kind, FP32_MMA_FLOPS, "std")
+        entry = {
+            "name": f"fused_conv_stack.zone.{kind}",
+            "route": "cuda",
+            "source": "hifigan_tpu_torch/csrc/conv_stack.cu",
+            "replaces": f"hifigan_tpu/ops/pallas/conv_stack.py:{line}",
+            "launches": run["zone_launches"][kind],
+            "launches_per_step": run["zone_per_step"][kind],
+            "max_abs_err": zone["errs"][torch.float32][kind],
+            "max_abs_err_bf16": zone["errs"][torch.bfloat16][kind],
+            "ms": sum(n * r["ms"][kind] for r in rows),
+            "plain_ms": sum(n * r["plain_ms"][kind] for r in rows),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_banded_ms": bound(rows, kind, FP32_MMA_FLOPS)[0],
+            # the same layers as grouped convs in cuDNN (the function, up to layout)
+            "library_ms": sum(n * r["std"]["library_ms"][kind] for r in rows),
+            "library_banded_ms": sum(n * r["library_ms"][kind] for r in rows),
+            "std_form_ms": sum(n * r["std"]["ms"][kind] for r in rows),
+            "banded_over_grouped": [r["banded_over_grouped"] for r in rows],
+            "bf16": {**{key: sum(n * r[key][kind] for r in rows_bf)
+                        for key in ("ms", "plain_ms")},
+                     "bound_ms": bound(rows_bf, kind, H100_BF16_FLOPS, "std")[0],
+                     "bound_banded_ms": bound(rows_bf, kind, H100_BF16_FLOPS)[0]},
+            "bf16_std_form_ms": sum(n * r["std"]["ms"][kind] for r in rows_bf),
+            "bf16_library_ms": sum(n * r["std"]["library_ms"][kind] for r in rows_bf),
+            "step_ms_fused_zoned": run["step_ms"],
+            "step_ms_fused_stack_in_turns": run["std_step_ms"],
+            "step_ms_disc_fused": forms["disc_fused"]["step_ms"],
+            "step_ms_fused_stack_in_turns_with_disc_fused": forms["disc_fused"]["std_step_ms"],
+            "feature_loss_zoned_vs_std": run["feature_loss"],
+            "per": (f"the zone chain (V1 MSD layers 2-5 as banded grouped layers on the "
+                    f"time-folded layout, hifigan_tpu/ops/pallas/conv_stack.py:1140 "
+                    f"zone_grouped_layer; lane masks :97-114, :267); launches: the zone layers' "
+                    f"in the main path's run of {TRAIN_STEPS} V1 steps with "
+                    f"msd_conv_impl='fused_zoned'; times and bound: one such step (B=16, 8192 "
+                    f"samples, fp32, {PASSES_PER_STEP[kind]} passes of the chain per scale; "
+                    "bound_ms from the grouped layers' MACs and bytes, the function's work, "
+                    "at the 3xTF32 rate; bound_banded_ms from the banded tables', which do "
+                    "banded_over_grouped times the MACs); library_ms: cuDNN's "
+                    "grouped chain over the same layers, library_banded_ms: cuDNN on the "
+                    "banded layers, std_form_ms: the same layers through the std form; "
+                    "max_abs_err: the three scales at N=2 and N=16"),
+        }
+        entries.append(entry)
+    return entries
 
 
 def cli_train_phase(h) -> None:
@@ -4037,6 +4441,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     msd = MultiScaleDiscriminator(generator=torch.Generator().manual_seed(SEED)).to(dev)
     stack = stack_phase(msd, dev)
+    # ... and the zone form: the V1 zone chain at the three scales
+    zone = zone_phase(msd, dev)
     del msd
     torch.cuda.empty_cache()
     lap("5 (B2 against its plain version)")
@@ -4050,6 +4456,8 @@ def main() -> int:
     # ... and in bench.py's bf16 training precision
     train_bf16 = train_bf16_phase(h, dev)
     torch.cuda.empty_cache()
+    # ... and under the two other discriminator forms, in turns with phase 6's
+    forms = v1_forms_phase(h, dev, zone["geoms"], train["update_floor"])
     lap("6 (V1 training)")
 
     # 7. the training CLI end to end
@@ -4216,6 +4624,7 @@ def main() -> int:
                         "over the three scales at N=2 and N=16 (function :973)")
         stack_ms += entry["ms"]
         kernels.append(entry)
+    kernels += zone_entries(zone, forms)
     sg_ms = 0.0
     for kind, line in (("fwd", 388), ("bwd_dx", 600), ("bwd_dw", 600)):
         rows = graph["rows"]
@@ -4273,6 +4682,11 @@ def main() -> int:
     print(f"distill.main.train() on the phase-17 corpus {dmain['through_ms']:.3f} ms a step "
           f"(the step {dmain['step_ms']:.3f} ms, the data engine {dmain['data_ms']:.3f} ms a "
           f"batch) against phase 9's bare step {distill['step_ms']:.3f} ms")
+    zl = forms["fused_zoned"]
+    print(f"train step with msd_conv_impl='fused_zoned' {zl['step_ms']:.3f} ms (in turns, "
+          f"'fused_stack' {zl['std_step_ms']:.3f} ms); with disc_fused "
+          f"{forms['disc_fused']['step_ms']:.3f} ms (in turns, "
+          f"{forms['disc_fused']['std_step_ms']:.3f} ms)")
     print(f"train step {train['step_ms']:.3f} ms, of which the conv-stack kernels "
           f"{stack_ms:.3f} ms ({100 * stack_ms / train['step_ms']:.1f}%, from per-pass times); "
           f"bf16 train step {train_bf16['step_ms']:.3f} ms")

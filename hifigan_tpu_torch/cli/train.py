@@ -13,6 +13,11 @@ share of every batch::
 
     torchrun --nproc_per_node 4 -m hifigan_tpu_torch.cli.train --config configs/config_v1.json
 
+The config's discriminator keys reach the step as the JAX CLI's do:
+``msd_conv_impl`` (``'auto'``, ``'xla'``, ``'fused_stack'``,
+``'fused_zoned'``, ``'pallas'``) and ``disc_fused``
+(``train/vocoder.py`` says what each form computes).
+
 ``g_*`` and ``do_*`` checkpoints and ``config.json`` go to
 ``--checkpoint_path`` (rank 0 writes), and a run there resumes from the
 latest pair.

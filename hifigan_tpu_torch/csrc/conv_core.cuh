@@ -75,6 +75,10 @@ struct Geom {
   int n, t_in, c_in, t_out, c_out, k, s, d, groups, pad_l;
   int ci_g, co_g;
   float slope;
+  // a partial last row (group time-fold): with lane_period > 0 the last
+  // output row of every element keeps only channels c with
+  // c % lane_period < lane_valid; the forward stores zeros in the others
+  int lane_period = 0, lane_valid = 0;
 };
 
 inline Geom make_geom(int n, int t_in, int c_in, int t_out, int c_out, int k, int s, int d,
@@ -99,7 +103,8 @@ inline Geom make_geom(int n, int t_in, int c_in, int t_out, int c_out, int k, in
 inline bool geom_ok(const Geom& G) {
   return G.n > 0 && G.t_in > 0 && G.t_out > 0 && G.k > 0 && G.s > 0 && G.d > 0 &&
          (G.s == 1 || G.d == 1) && G.groups > 0 && G.pad_l >= 0 && G.c_in % G.groups == 0 &&
-         G.c_out % G.groups == 0 && G.ci_g > 0 && G.co_g > 0 &&
+         G.c_out % G.groups == 0 && G.ci_g > 0 && G.co_g > 0 && G.lane_valid >= 0 &&
+         G.lane_valid <= G.lane_period &&
          (long)(G.t_out - 1) * G.s + (long)(G.k - 1) * G.d - G.pad_l < (1L << 30) &&
          (long)G.n * ((long)G.t_out * G.s + (long)G.k * G.d + G.t_in) < (1L << 30);
 }
@@ -108,6 +113,11 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+// whether output (row m = n * t_out + t, channel c) is a fold-padding lane
+// of a partial last row, which the forward zeroes
+__host__ __device__ inline bool lane_cut(const Geom& G, long m, int c) {
+  return G.lane_period > 0 && m % G.t_out == G.t_out - 1 && c % G.lane_period >= G.lane_valid;
+}
 // v (a multiple of 8) padded to 8 mod 16 elements: conflict-free ldmatrix
 // rows in bf16, and conflict-free (k, n) fragment reads in fp32
 __host__ __device__ inline int pad816(int v) { return v % 16 == 0 ? v + 8 : v + 16; }
@@ -680,7 +690,8 @@ __global__ void __launch_bounds__(kThreads)
         if (m >= a.M || o >= G.co_g) continue;
         const int c = grp * G.co_g + o;
         const float z = acc[i][j][v] + (bias != nullptr ? bias[c] : 0.f);
-        y[(long)m * G.c_out + c] = from_f<T>(fmaxf(z, 0.f) + G.slope * fminf(z, 0.f));
+        const float act = lane_cut(G, m, c) ? 0.f : fmaxf(z, 0.f) + G.slope * fminf(z, 0.f);
+        y[(long)m * G.c_out + c] = from_f<T>(act);
       }
 }
 
@@ -895,8 +906,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   s = lanes_sum(s, lanes);
   if (out < total && lane == 0) {
-    const float z = s + (bias != nullptr ? bias[out % G.c_out] : 0.f);
-    y[out] = from_f<T>(fmaxf(z, 0.f) + G.slope * fminf(z, 0.f));
+    const int c = static_cast<int>(out % G.c_out);
+    const float z = s + (bias != nullptr ? bias[c] : 0.f);
+    const float act = lane_cut(G, out / G.c_out, c) ? 0.f : fmaxf(z, 0.f) + G.slope * fminf(z, 0.f);
+    y[out] = from_f<T>(act);
   }
 }
 

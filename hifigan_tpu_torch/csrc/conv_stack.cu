@@ -13,7 +13,9 @@
 //
 //   dz = (dy + up) * (y >= 0 ? 1 : slope)      in fp32, stored rounded to the working type,
 //
-// up being the fp32 input-cotangent of the layer above. db sums the fp32 dz
+// up being the fp32 input-cotangent of the layer above; on a partial last
+// row (a group time-fold's, lane_period > 0) dz is zeroed at the lanes the
+// forward zeroed. db sums the fp32 dz
 // per block of rows, and a second pass sums those partials in a fixed
 // order; dx and dW read the rounded dz (the Pallas rounding point, :560).
 // The dW entry forms dz and hands it to the dx entry of the same layer;
@@ -29,9 +31,13 @@
 // through a cp.async ring; dx per output phase over a window of dz; dW as
 // a (tap, channel) x column GEMM reduced over (n, t) in a few large splits
 // with a fixed-order sum. conv_post (one output channel) takes the core's
-// SIMT path. The TPU kernel's zone layout, lane folding, group
-// densification, small-T tail batching and backward chunking are VMEM
-// devices and are not carried over.
+// SIMT path. The TPU kernel's lane folding, group densification, small-T
+// tail batching and backward chunking are VMEM devices and are not carried
+// over. Its zone form is: the host folds time into each group's lanes
+// (ops/conv_stack.py::fold_group_zones) and hands these kernels banded
+// grouped layers whose partial last row carries a lane mask (lane_period,
+// lane_valid; conv_stack.py:97-114 and _apply_valid_mask :267), applied by
+// the forward's epilogue and by dz.
 
 #include "conv_core.cuh"
 
@@ -46,15 +52,18 @@ using conv_core::to_f;
 // dz of rows [rb * rb_rows, ...) and columns [blockIdx.y * cw, ...): written
 // rounded to the working type; with pdb, each column's fp32 sum over the
 // block's rows at pdb[rb][c] (thread partials summed in a fixed order).
+// Rows r with r % t_out == t_out - 1 keep dz only at the lanes c with
+// c % lane_period < lane_valid when lane_period > 0.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dz_kernel(const T* __restrict__ dy, const float* __restrict__ up, const T* __restrict__ y,
-              float slope, int rows, int C, int rb_rows, T* __restrict__ dz,
-              float* __restrict__ pdb) {
+              float slope, int rows, int C, int rb_rows, int t_out, int lane_period,
+              int lane_valid, T* __restrict__ dz, float* __restrict__ pdb) {
   __shared__ float part[kThreads];
   const int cw = C < kThreads ? C : kThreads, nsub = kThreads / cw;
   const int tid = threadIdx.x, sub = tid / cw, col = blockIdx.y * cw + tid % cw;
   const bool active = sub < nsub && col < C;
+  const bool cut_col = lane_period > 0 && col % lane_period >= lane_valid;
   const int r0 = blockIdx.x * rb_rows;
   const int r1 = r0 + rb_rows < rows ? r0 + rb_rows : rows;
   float acc = 0.f;
@@ -65,6 +74,7 @@ __global__ void __launch_bounds__(kThreads)
       if (dy != nullptr) v += to_f(dy[idx]);
       if (up != nullptr) v += up[idx];
       if (slope != 1.f && to_f(y[idx]) < 0.f) v *= slope;
+      if (cut_col && r % t_out == t_out - 1) v = 0.f;
       dz[idx] = from_f<T>(v);
       acc += v;
     }
@@ -80,18 +90,23 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch_dz(const void* dy, const float* up, const void* y, float slope, int rows, int C,
-              int rb_rows, void* dz, float* pdb, cudaStream_t st) {
+int launch_dz(const Geom& G, const void* dy, const float* up, const void* y, int rb_rows, void* dz,
+              float* pdb, cudaStream_t st) {
+  const int rows = G.n * G.t_out, C = G.c_out;
   const int cw = C < kThreads ? C : kThreads;
   const dim3 grid(conv_core::ucdiv(rows, rb_rows), conv_core::ucdiv(C, cw));
   dz_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(dy), up, static_cast<const T*>(y),
-                                          slope, rows, C, rb_rows, static_cast<T*>(dz), pdb);
+                                          G.slope, rows, C, rb_rows, G.t_out, G.lane_period,
+                                          G.lane_valid, static_cast<T*>(dz), pdb);
   return static_cast<int>(cudaGetLastError());
 }
 
 Geom stack_geom(int n, int t_in, int c_in, int t_out, int c_out, int k, int s, int groups,
-                int pad_l, float slope) {
-  return conv_core::make_geom(n, t_in, c_in, t_out, c_out, k, s, 1, groups, pad_l, slope);
+                int pad_l, float slope, int lane_period, int lane_valid) {
+  Geom G = conv_core::make_geom(n, t_in, c_in, t_out, c_out, k, s, 1, groups, pad_l, slope);
+  G.lane_period = lane_period;
+  G.lane_valid = lane_valid;
+  return G;
 }
 
 constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
@@ -103,13 +118,15 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its launches.
 // x (n, t_in, c_in), w (k, c_in/groups, c_out), bias (c_out,) fp32 or null,
 // y (n, t_out, c_out), all contiguous, in the working type but bias.
+// lane_period, lane_valid: the partial last row's lane mask (0, 0: none).
 // body 0: SIMT with `lanes` threads an output; body 1: tensor cores, tile
 // bm x bn, reduction channel chunks of kc, smem the plan's bytes.
 int hifigan_conv_fwd(int dtype, const void* x, const void* w, const float* bias, void* y, int n,
                      int t_in, int c_in, int t_out, int c_out, int k, int s, int groups,
-                     int pad_l, float slope, int body, int bm, int bn, int kc, int smem, int lanes,
-                     void* stream) {
-  const Geom G = stack_geom(n, t_in, c_in, t_out, c_out, k, s, groups, pad_l, slope);
+                     int pad_l, float slope, int lane_period, int lane_valid, int body, int bm,
+                     int bn, int kc, int smem, int lanes, void* stream) {
+  const Geom G = stack_geom(n, t_in, c_in, t_out, c_out, k, s, groups, pad_l, slope, lane_period,
+                            lane_valid);
   if (!conv_core::geom_ok(G)) return kBad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -127,19 +144,18 @@ int hifigan_conv_fwd(int dtype, const void* x, const void* w, const float* bias,
 int hifigan_conv_dx(int dtype, const void* dy, const float* up, const void* y, const void* w,
                     const void* wt, void* dz, int dz_ready, float* da, int n, int t_in, int c_in,
                     int t_out, int c_out, int k, int s, int groups, int pad_l, float slope,
-                    int body, int bm, int bn, int kc, int smem, int lanes, int rb_rows,
-                    void* stream) {
-  const Geom G = stack_geom(n, t_in, c_in, t_out, c_out, k, s, groups, pad_l, slope);
+                    int lane_period, int lane_valid, int body, int bm, int bn, int kc, int smem,
+                    int lanes, int rb_rows, void* stream) {
+  const Geom G = stack_geom(n, t_in, c_in, t_out, c_out, k, s, groups, pad_l, slope, lane_period,
+                            lane_valid);
   if (!conv_core::geom_ok(G) || dz == nullptr || (!dz_ready && dy == nullptr && up == nullptr) ||
       rb_rows < 1)
     return kBad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return kBad;
   if (!dz_ready) {
-    const int rc = dtype == 0 ? launch_dz<float>(dy, up, y, slope, n * t_out, c_out, rb_rows, dz,
-                                                 nullptr, st)
-                              : launch_dz<bf16>(dy, up, y, slope, n * t_out, c_out, rb_rows, dz,
-                                                nullptr, st);
+    const int rc = dtype == 0 ? launch_dz<float>(G, dy, up, y, rb_rows, dz, nullptr, st)
+                              : launch_dz<bf16>(G, dy, up, y, rb_rows, dz, nullptr, st);
     if (rc != 0) return rc;
   }
   if (dtype == 0)
@@ -157,22 +173,23 @@ int hifigan_conv_dx(int dtype, const void* dy, const float* up, const void* y, c
 int hifigan_conv_dw(int dtype, const void* x, const void* dy, const float* up, const void* y,
                     void* dz, float* pdb, int rb_rows, float* partial, void* dw, float* db, int n,
                     int t_in, int c_in, int t_out, int c_out, int k, int s, int groups, int pad_l,
-                    float slope, int body, int bn, int kc, int splits, int split_rows, int smem,
-                    int lanes, void* stream) {
-  const Geom G = stack_geom(n, t_in, c_in, t_out, c_out, k, s, groups, pad_l, slope);
+                    float slope, int lane_period, int lane_valid, int body, int bn, int kc,
+                    int splits, int split_rows, int smem, int lanes, void* stream) {
+  const Geom G = stack_geom(n, t_in, c_in, t_out, c_out, k, s, groups, pad_l, slope, lane_period,
+                            lane_valid);
   if (!conv_core::geom_ok(G) || (dy == nullptr && up == nullptr) || dz == nullptr ||
       pdb == nullptr || rb_rows < 1)
     return kBad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = n * t_out, nrb = conv_core::cdiv(rows, rb_rows);
   if (dtype == 0) {
-    const int rc = launch_dz<float>(dy, up, y, slope, rows, c_out, rb_rows, dz, pdb, st);
+    const int rc = launch_dz<float>(G, dy, up, y, rb_rows, dz, pdb, st);
     if (rc != 0) return rc;
     return conv_core::launch_dw<float>(G, x, dz, pdb, nrb, partial, dw, db, body, bn, kc,
                                        splits, split_rows, smem, lanes, st);
   }
   if (dtype == 1) {
-    const int rc = launch_dz<bf16>(dy, up, y, slope, rows, c_out, rb_rows, dz, pdb, st);
+    const int rc = launch_dz<bf16>(G, dy, up, y, rb_rows, dz, pdb, st);
     if (rc != 0) return rc;
     return conv_core::launch_dw<bf16>(G, x, dz, pdb, nrb, partial, dw, db, body, bn, kc,
                                       splits, split_rows, smem, lanes, st);

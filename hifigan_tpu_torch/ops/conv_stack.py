@@ -28,10 +28,18 @@ call per layer and pass, and its backward follows the Pallas one:
   bias gradients.
 
 What bounds it and what the design does about it is in the source note of
-``csrc/conv_stack.cu``. The TPU kernel's zone layout, lane folding, group
-densification and backward chunking are VMEM devices and are not carried
-over (``zone_grouped_layer`` waits for the stream-graph kernel, which needs
-it).
+``csrc/conv_stack.cu``. The TPU kernel's lane folding, group densification
+and backward chunking are VMEM devices and are not carried over.
+
+The group time-fold ("zone") form of a grouped chain is carried over, with
+the JAX layouts (``hifigan_tpu/ops/pallas/conv_stack.py:1117-1220``):
+:func:`fold_group_zones` folds time into each group's lanes,
+:func:`zone_grouped_layer` turns a grouped layer into a banded one over that
+layout, and :func:`unfold_group_zones` undoes the fold at the chain's exit.
+A sample count that does not divide the fold leaves a partial last row,
+whose fold-padding lanes the layer's ``lane_period``/``lane_valid`` mask
+zeroes: in the forward after the activation, and in dz before db sums it,
+so dx and dW follow from the masked dz.
 
 - :func:`fused_conv_stack_reference` is the plain PyTorch version: per-layer
   ``F.conv1d`` + bias + lrelu in fp32 with autograd.
@@ -44,6 +52,9 @@ it).
   launches of the three entry points, each counted once: the dW entry runs
   the dz pass, the partial-sum kernel and its reduction; the dx entry the
   dz pass (when no dW entry formed dz for it) and the dx kernel.
+  ``LAUNCHES_BY_LAYER`` counts the same launches by (pass, c_in, c_out,
+  kernel, stride, groups), so the launches of given layers (a zone chain's)
+  can be read apart.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ import dataclasses
 import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -62,6 +74,7 @@ from hifigan_tpu_torch.parallel.mesh import data_axis, gather_rows, rows_are_loc
 LAUNCHES_FWD = 0
 LAUNCHES_BWD_DX = 0
 LAUNCHES_BWD_DW = 0
+LAUNCHES_BY_LAYER: dict[tuple, int] = {}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,6 +90,12 @@ class LayerSpec:
     pad_l: int = 0
     pad_r: int = 0
     slope: float = 1.0
+    # a partial last row (group time-fold of a length that does not divide
+    # the fold): with lane_period > 0 the last output row of every element
+    # keeps only the lanes with lane % lane_period < lane_valid; the rest
+    # are fold padding and are zeroed
+    lane_period: int = 0
+    lane_valid: int = 0
 
 
 def out_len(t: int, spec: LayerSpec) -> int:
@@ -86,6 +105,17 @@ def out_len(t: int, spec: LayerSpec) -> int:
 def reset_launches() -> None:
     global LAUNCHES_FWD, LAUNCHES_BWD_DX, LAUNCHES_BWD_DW
     LAUNCHES_FWD = LAUNCHES_BWD_DX = LAUNCHES_BWD_DW = 0
+    LAUNCHES_BY_LAYER.clear()
+
+
+def layer_key(pass_: str, c_in: int, sp: LayerSpec) -> tuple:
+    """The ``LAUNCHES_BY_LAYER`` key of one layer's pass ('fwd', 'bwd_dx', 'bwd_dw')."""
+    return (pass_, c_in, sp.c_out, sp.kernel, sp.stride, sp.groups)
+
+
+def _count(pass_: str, c_in: int, sp: LayerSpec) -> None:
+    key = layer_key(pass_, c_in, sp)
+    LAUNCHES_BY_LAYER[key] = LAUNCHES_BY_LAYER.get(key, 0) + 1
 
 
 def launches() -> dict[str, int]:
@@ -104,6 +134,16 @@ class _ZeroGrad(torch.autograd.Function):
         return torch.zeros_like(grad)
 
 
+def lane_mask(sp: LayerSpec, t_out: int, device=None) -> torch.Tensor | None:
+    """(t_out, c_out) 0/1 fp32 mask of a partial last row's kept lanes, or
+    None where the layer has none."""
+    if sp.lane_period <= 0 or sp.lane_valid >= sp.lane_period:
+        return None
+    m = torch.ones((t_out, sp.c_out), dtype=torch.float32, device=device)
+    m[-1] = (torch.arange(sp.c_out, device=device) % sp.lane_period < sp.lane_valid).float()
+    return m
+
+
 def _stack_reference(x: torch.Tensor, kernels, biases, specs) -> list[torch.Tensor]:
     ys = []
     h = x
@@ -113,7 +153,11 @@ def _stack_reference(x: torch.Tensor, kernels, biases, specs) -> list[torch.Tens
                      stride=sp.stride, groups=sp.groups)
         if sp.slope != 1.0:
             z = torch.where(z >= 0, z, z * sp.slope)
-        h = z.transpose(1, 2).to(x.dtype)
+        z = z.transpose(1, 2)
+        mask = lane_mask(sp, z.shape[1], z.device)
+        if mask is not None:
+            z = z * mask
+        h = z.to(x.dtype)
         ys.append(h)
     return ys
 
@@ -128,6 +172,36 @@ def fused_conv_stack_reference(x, kernels: Sequence[torch.Tensor],
     if isinstance(x, (list, tuple)):
         return [_stack_reference(xi, kernels, biases, specs) for xi in x]
     return _stack_reference(x, kernels, biases, specs)
+
+
+def reference_dz(y: torch.Tensor, dy: torch.Tensor | None, up: torch.Tensor | None,
+                 sp: LayerSpec) -> torch.Tensor:
+    """A layer's fp32 pre-activation cotangent in the plain backward: the
+    map's cotangent dy (rounded to y's dtype) plus the fp32 upstream, through
+    the leaky ReLU at the post-activation y and the lane mask."""
+    dz = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
+    if dy is not None:
+        dz = dz + dy.to(y.dtype).float()
+    if up is not None:
+        dz = dz + up
+    if sp.slope != 1.0:
+        dz = torch.where(y.float() >= 0, dz, dz * sp.slope)
+    mask = lane_mask(sp, y.shape[1], y.device)
+    return dz if mask is None else dz * mask
+
+
+def reference_dw(x_in: torch.Tensor, dz: torch.Tensor, kern: torch.Tensor,
+                 sp: LayerSpec) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's (dW, db) in the plain backward from its input and the fp32
+    dz of :func:`reference_dz`: dz rounded to the input's dtype for the
+    product, dW rounded to it, db the fp32 sum."""
+    dtype = x_in.dtype
+    dzr = dz.to(dtype).float().transpose(1, 2)
+    xp = F.pad(x_in.float().transpose(1, 2), (sp.pad_l, sp.pad_r))
+    k, ci_g, c_out = kern.shape
+    dw = torch.nn.grad.conv1d_weight(xp, (c_out, ci_g, k), dzr, stride=sp.stride,
+                                     groups=sp.groups)
+    return dw.permute(2, 1, 0).to(dtype), dz.sum(dim=(0, 1))
 
 
 def fused_conv_stack_backward_reference(x: torch.Tensor, kernels: Sequence[torch.Tensor],
@@ -154,23 +228,13 @@ def fused_conv_stack_backward_reference(x: torch.Tensor, kernels: Sequence[torch
         sp, y, kern = specs[l], ys[l], kernels[l]
         if dys[l] is None and up is None:
             continue
-        dz = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
-        if dys[l] is not None:
-            dz = dz + dys[l].to(dtype).float()
-        if up is not None:
-            dz = dz + up
-        if sp.slope != 1.0:
-            dz = torch.where(y.float() >= 0, dz, dz * sp.slope)
+        dz = reference_dz(y, dys[l], up, sp)
         dzr = dz.to(dtype).float().transpose(1, 2)
         x_in = x if l == 0 else ys[l - 1]
         n_b, t_in, c_in = x_in.shape
         w = kern.to(dtype).float().permute(2, 1, 0)
         if weight_grads:
-            xp = F.pad(x_in.float().transpose(1, 2), (sp.pad_l, sp.pad_r))
-            dw = torch.nn.grad.conv1d_weight(xp, tuple(w.shape), dzr, stride=sp.stride,
-                                             groups=sp.groups)
-            dks[l] = dw.permute(2, 1, 0).to(dtype)
-            dbs[l] = dz.sum(dim=(0, 1))
+            dks[l], dbs[l] = reference_dw(x_in, dz, kern, sp)
         up = None
         if l or need_x:
             da = torch.nn.grad.conv1d_input((n_b, c_in, t_in + sp.pad_l + sp.pad_r), w, dzr,
@@ -422,7 +486,7 @@ def _kernels():
     if _KERNELS is None:
         lib = _build.load("conv_stack")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        geom = [ci] * 9 + [cf]
+        geom = [ci] * 9 + [cf, ci, ci]
         fwd, dx, dw = lib.hifigan_conv_fwd, lib.hifigan_conv_dx, lib.hifigan_conv_dw
         fwd.argtypes = [ci] + [vp] * 4 + geom + [ci] * 6 + [vp]
         dx.argtypes = [ci] + [vp] * 6 + [ci, vp] + geom + [ci] * 7 + [vp]
@@ -460,7 +524,8 @@ def _shape(x_in: torch.Tensor, t_out: int, sp: LayerSpec) -> ConvShape:
 
 
 def _geom(g: ConvShape, sp: LayerSpec) -> list:
-    return [g.n, g.t_in, g.c_in, g.t_out, g.c_out, g.k, g.s, g.groups, g.pad_l, float(sp.slope)]
+    return [g.n, g.t_in, g.c_in, g.t_out, g.c_out, g.k, g.s, g.groups, g.pad_l, float(sp.slope),
+            sp.lane_period, sp.lane_valid]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -482,6 +547,7 @@ def _layer_fwd(x_in, kern, bias, sp: LayerSpec, t_out: int) -> torch.Tensor:
              *_geom(g, sp), *launch_args(plan), _stream(x_in))
     _raise_if(rc, "forward")
     LAUNCHES_FWD += 1
+    _count("fwd", g.c_in, sp)
     return y
 
 
@@ -502,6 +568,7 @@ def _layer_dx(x_in, y, dy, up, kern, sp: LayerSpec, dz=None) -> torch.Tensor:
             plan["rb_rows"], _stream(y))
     _raise_if(rc, "dx")
     LAUNCHES_BWD_DX += 1
+    _count("bwd_dx", g.c_in, sp)
     return da
 
 
@@ -526,6 +593,7 @@ def _layer_dw(x_in, y, dy, up, kern, sp: LayerSpec):
             smem, lanes, _stream(y))
     _raise_if(rc, "dW")
     LAUNCHES_BWD_DW += 1
+    _count("bwd_dw", g.c_in, sp)
     return dkern, dbias, dz
 
 
@@ -610,7 +678,8 @@ def _check(xs: Sequence[torch.Tensor], kernels, biases, specs) -> None:
             raise ValueError(f"layer {l}: weights must be on x's device")
         if bias is not None and tuple(bias.shape) != (sp.c_out,):
             raise ValueError(f"layer {l}: bias must be ({sp.c_out},), got {tuple(bias.shape)}")
-        if sp.stride < 1 or sp.pad_l < 0 or sp.pad_r < 0:
+        if (sp.stride < 1 or sp.pad_l < 0 or sp.pad_r < 0 or sp.lane_period < 0
+                or not 0 <= sp.lane_valid <= max(sp.lane_period, 0)):
             raise ValueError(f"layer {l}: bad spec {sp}")
         t = out_len(t, sp)
         if t < 1:
@@ -662,3 +731,96 @@ def fused_conv_stack(x, kernels: Sequence[torch.Tensor], biases: Sequence[torch.
     with torch.cuda.device(xs[0].device):
         outs = [list(_FusedConvStack.apply(specs, bool(weight_grads), xi, *ks, *bs)) for xi in xs]
     return outs if multi else outs[0]
+
+
+# ---------------------------------------------------------------------------
+# The group time-fold ("zone") form of a grouped chain
+# (hifigan_tpu/ops/pallas/conv_stack.py:1117-1220, the same layouts)
+# ---------------------------------------------------------------------------
+#
+# For a chain of grouped convs that maps group j of its input to group j of
+# its output, fold time into each group's lanes so that every group holds
+# f * ci lanes:
+#
+#   X[r, (gg*f + phi)*ci + i] = x[r*f + phi, gg*ci + i]
+#   Y[rho, (gg*f_out + psi)*co + o] = y[rho*f_out + psi, gg*co + o]
+#
+# Per group Y[rho] = sum_q X[sigma*rho + q] @ Wz[gg][q], sigma = f_out*s/f_in,
+# with the banded kernel Wz[gg][q][phi*ci + i, psi*co + o] =
+# W[q*f_in + phi - psi*s + pad][i, gg*co + o] (taps outside [0, K) are zero):
+# an ordinary grouped layer of g groups over f_in*ci -> f_out*co lanes. A
+# chain's layer l + 1 reads layer l's output layout when f_in[l+1] = f_out[l].
+
+
+@functools.lru_cache(maxsize=64)
+def _zone_taps(K: int, s: int, pad: int, f_in: int, f_out: int, d: int,
+               device: torch.device) -> tuple:
+    """(sigma, q_min, kk, the tap index of each (q, phi, psi) on ``device``,
+    K for the zero tap) of one banded table, computed once per geometry."""
+    if (f_out * s) % f_in:
+        raise ValueError(f"f_out * stride ({f_out} * {s}) must divide by f_in ({f_in})")
+    sigma = (f_out * s) // f_in
+    d_min, d_max = -pad, (f_out - 1) * s + (K - 1) * d - pad
+    q_min, q_max = d_min // f_in, d_max // f_in
+    q_i, phi_i, psi_i = np.meshgrid(np.arange(q_min, q_max + 1), np.arange(f_in),
+                                    np.arange(f_out), indexing="ij")
+    kd_i = q_i * f_in + phi_i - psi_i * s + pad  # tap k times dilation
+    valid = (kd_i >= 0) & (kd_i < (K - 1) * d + 1) & (kd_i % d == 0)
+    taps = torch.from_numpy(np.where(valid, kd_i // d, K).reshape(-1).astype(np.int64))
+    return sigma, q_min, q_max - q_min + 1, taps.to(device)
+
+
+def zone_grouped_layer(kernel: torch.Tensor, bias: torch.Tensor | None, s: int, pad: int,
+                       f_in: int, f_out: int, groups: int, slope: float, t_in: int,
+                       dilation: int = 1):
+    """Fold one grouped conv layer into the zone form.
+
+    kernel: (K, ci, g*co) (the JAX layout; ci = a group's input channels).
+    Returns (zkernel (kk, f_in*ci, g*f_out*co), zbias (g*f_out*co,) or None,
+    spec) for :func:`fused_conv_stack` on the zone-layout activation of a
+    ``t_in``-sample input: the table is one gather over the kernel and a
+    zero tap, so gradients reach the kernel and bias through autograd; the
+    spec's padding, stride, ``kk`` taps and lane mask are the JAX values.
+    """
+    K, ci, gco = kernel.shape
+    g, d = groups, dilation
+    co = gco // g
+    sigma, q_min, kk, taps = _zone_taps(K, s, pad, f_in, f_out, d, kernel.device)
+    rows_in = _cdiv(t_in, f_in)
+    t_out = (t_in + 2 * pad - (K - 1) * d - 1) // s + 1
+    rows_out = _cdiv(t_out, f_out)
+    rem_out = t_out % f_out
+    pad_l = -q_min
+    need = (rows_out - 1) * sigma + kk - pad_l - rows_in
+    pad_r = max(0, need)
+    if need + sigma - 1 < 0 or pad_r > kk + sigma:
+        raise ValueError(f"zone geometry out of range: pad_l {pad_l}, need {need}, kk {kk}")
+    wp = torch.cat([kernel, kernel.new_zeros((1, ci, gco))])
+    zk = (wp[taps].reshape(kk, f_in, f_out, ci, g, co).permute(0, 1, 3, 4, 2, 5)
+          .reshape(kk, f_in * ci, g * f_out * co))
+    zb = None if bias is None else bias.reshape(g, 1, co).expand(g, f_out, co).reshape(-1)
+    spec = LayerSpec(g * f_out * co, kk, sigma, g, pad_l, pad_r, slope,
+                     lane_period=f_out * co if rem_out else 0,
+                     lane_valid=rem_out * co if rem_out else 0)
+    return zk, zb, spec
+
+
+def fold_group_zones(x: torch.Tensor, g: int, f: int) -> torch.Tensor:
+    """(B, T, g*ci) group-major channels -> (B, ceil(T/f), g*f*ci) zone
+    layout, contiguous; a T that does not divide by f zero-pads the last
+    row's trailing phases (they read as conv padding inside the chain)."""
+    b, t, c = x.shape
+    ci = c // g
+    rows = _cdiv(t, f)
+    if t % f:
+        x = F.pad(x, (0, 0, 0, rows * f - t))
+    return x.reshape(b, rows, f, g, ci).permute(0, 1, 3, 2, 4).reshape(b, rows, g * f * ci)
+
+
+def unfold_group_zones(z: torch.Tensor, g: int, f: int, t_out: int | None = None) -> torch.Tensor:
+    """The inverse for the output layout: (B, R, g*f*co) -> (B, t_out, g*co)
+    (t_out defaults to R*f; the true length drops the fold padding)."""
+    b, r, lanes = z.shape
+    co = lanes // (g * f)
+    y = z.reshape(b, r, g, f, co).permute(0, 1, 3, 2, 4).reshape(b, r * f, g * co)
+    return y if t_out is None or t_out == r * f else y[:, :t_out, :]

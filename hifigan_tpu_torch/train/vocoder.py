@@ -19,6 +19,23 @@ precision follows the JAX ``_cast``: ``gen_compute_dtype`` /
 ``disc_compute_dtype`` set the dtype every conv casts its input, kernel and
 bias to; parameters and losses stay float32; no ``torch.autocast``.
 
+Discriminator forms (``build_discriminators``), as the JAX trainer reads
+them:
+
+- ``msd_conv_impl`` (``'auto'``, ``'xla'``, ``'fused_stack'``,
+  ``'fused_zoned'``, ``'pallas'``): how the MSD's convs run
+  (``models/discriminators.py``). Every form computes the same logits.
+  ``'fused_zoned'`` returns the zone chain's feature maps (layers 2-5 at V1)
+  in the zone layout, with zeroed fold-padding lanes on the odd-length
+  scales, so its ``feature_loss``, and with it ``loss_gen_all``, divides
+  those maps' sums by a larger count: the JAX step's generator loss on an
+  accelerator, where its ``'auto'`` means ``'fused_zoned'``. The port's
+  ``'auto'`` is ``'fused_stack'`` on CUDA and ``'xla'`` on the CPU.
+- ``disc_fused``: real and fake go through each sub-discriminator as one
+  2B batch. On MSD scale 0 the D update then runs one spectral power
+  iteration for both halves where the unfused step runs two, so the step
+  differs from the unfused one from the D update on, as the JAX step does.
+
 Parallelism (``make_train_step(h, mesh=)``): data parallel over the mesh's
 ``'data'`` axis. Each rank's batch is its rows of the logical batch
 (``parallel.mesh.shard_batch``); the step runs under
@@ -85,8 +102,9 @@ class VocoderTrainState:
 def build_discriminators(h, generator: torch.Generator | None = None, mesh=None):
     """MPD/MSD with reference widths unless ``h`` overrides them
     (``mpd_periods``, ``mpd_channels``, ``msd_width``, ``msd_num_scales``,
-    ``msd_conv_impl``, ``disc_compute_dtype``, ``disc_fused``); ``mesh``
-    wires the MSD's fused stacks to their batch-sharded form."""
+    ``msd_conv_impl``, ``disc_compute_dtype``, ``disc_fused``; the module
+    docstring says what the forms compute); ``mesh`` wires the MSD's fused
+    stacks to their batch-sharded form."""
     dtype = compute_dtype(h.get("disc_compute_dtype"))
     fused = h.get("disc_fused", False)
     mpd = MultiPeriodDiscriminator(periods=tuple(h.get("mpd_periods", (2, 3, 5, 7, 11))),

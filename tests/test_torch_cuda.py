@@ -320,6 +320,38 @@ def test_conv_stack_skips_weight_and_input_grads(no_tf32):
 
 
 @requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [2048, 1025])
+def test_zoned_discriminator_on_the_card_matches_the_cpu(no_tf32, t, dtype):
+    """``conv_impl='fused_zoned'`` at width 128: the zone chain's kernels,
+    lane masks on the partial rows at 1025, against the same module on the
+    CPU (the plain stack): every map, its zeros (the masked lanes) exact,
+    and in fp32 the gradient of every parameter within 1e-3 of its norm."""
+    from hifigan_tpu_torch.models import DiscriminatorS
+
+    cpu = DiscriminatorS(conv_impl="fused_zoned", dtype=dtype,
+                         generator=torch.Generator().manual_seed(t))
+    card = DiscriminatorS(conv_impl="fused_zoned", dtype=dtype).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((3, t), generator=torch.Generator().manual_seed(1)) * 0.3
+    before = tstack.launches()
+    (lc, fc), (lk, fk) = cpu(x), card(x.cuda())
+    assert tstack.launches()["fwd"] == before["fwd"] + 7
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -4
+    for a, b in zip([lk, *fk], [lc, *fc]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert (a.cpu().float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+        assert bool((a.cpu()[b == 0] == 0).all())
+    if dtype == torch.bfloat16:
+        return
+    gc = torch.autograd.grad(lc.sum() + sum(f.square().mean() for f in fc), list(cpu.parameters()))
+    gk = torch.autograd.grad(lk.sum() + sum(f.square().mean() for f in fk),
+                             list(card.parameters()))
+    for a, b in zip(gk, gc):
+        assert (a.cpu() - b).norm().item() <= 1e-3 * b.norm().item()
+
+
+@requires_cuda
 def test_conv_stack_wrapper_rejects_bad_inputs():
     specs, c0, seq = STACKS["odd"]
     x, ks, bs = _stack(specs, c0, seq, 1, 3)

@@ -153,12 +153,84 @@ def test_fused_stack_path_matches_xla_path(carried, weight_grads):
 
 
 def test_conv_impl_options():
+    """Every ``conv_impl`` the JAX trainer accepts builds; ``'fused_zoned'``
+    needs a width that is a multiple of 128, as in the JAX package, and runs;
+    ``fused=True`` builds and runs on both discriminators."""
     assert DiscriminatorS(width=16).resolve_impl(torch.zeros(1, 8)) == "xla"
     assert DiscriminatorS(width=16, conv_impl="pallas").resolve_impl(torch.zeros(1, 8)) == "pallas"
-    with pytest.raises(NotImplementedError):
+    zoned = DiscriminatorS(width=128, conv_impl="fused_zoned")
+    assert zoned.resolve_impl(torch.zeros(1, 8)) == "fused_zoned"
+    logits, fmap = zoned(torch.zeros(2, 300))
+    assert logits.shape[0] == 2 and len(fmap) == 8
+    with pytest.raises(ValueError, match="multiple of 128"):
         DiscriminatorS(width=16, conv_impl="fused_zoned")
     with pytest.raises(ValueError):
         DiscriminatorS(width=16, conv_impl="cudnn")
-    for cls in (MultiPeriodDiscriminator, MultiScaleDiscriminator):
-        with pytest.raises(NotImplementedError):
-            cls(fused=True)
+    y = torch.zeros(2, T)
+    for d in (MultiPeriodDiscriminator(**MPD, fused=True),
+              MultiScaleDiscriminator(**MSD, fused=True, conv_impl="xla")):
+        y_d_rs, y_d_gs, fmap_rs, fmap_gs = d(y, y)
+        assert all(r.shape[0] == g.shape[0] == 2 for r, g in zip(y_d_rs, y_d_gs))
+        assert all(f.shape[0] == 2 for fm in fmap_rs + fmap_gs for f in fm)
+
+
+def _fresh(jvars) -> dict:
+    """Port modules' state_dicts from the JAX variables (the carried modules'
+    spectral buffers move with each test that updates them)."""
+    return discriminator_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jvars["mpd"]),
+                                             jax.tree_util.tree_map(np.asarray, jvars["msd"]))
+
+
+@pytest.mark.parametrize("update_spectral", [True, False])
+@pytest.mark.parametrize("conv_impl", ["xla", "fused_stack"])
+def test_fused_msd_matches_jax(carried, conv_impl, update_spectral):
+    """``fused=True``: one 2B call a scale against the JAX package's: the
+    logits, maps, input gradients, and scale 0's ``u`` (one power iteration
+    for both halves) and ``v`` after the call."""
+    jvars = carried[0]
+    msd = MultiScaleDiscriminator(**MSD, conv_impl=conv_impl, fused=True)
+    msd.load_state_dict(_fresh(jvars)["msd"])
+    u0 = {k: v.clone() for k, v in msd.named_buffers() if k.endswith("weight_u")}
+    y, y_hat = _wave(7), _wave(8)
+    jmsd = JaxMSD(**MSD, conv_impl="xla", fused=True)
+    want, want_g, new = _jax_grads(
+        lambda a, b: jmsd.apply(jvars["msd"], a, b, update_spectral, mutable=["spectral"]),
+        y, y_hat)
+    got, got_g = _port_grads(lambda a, b: msd(a, b, update_spectral=update_spectral), y, y_hat)
+    got_leaves, want_leaves = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        assert tuple(g.shape) == w.shape
+        _close(g, w)
+    for g, w in zip(got_g, want_g):
+        _close(g, w)
+    u = jax.tree_util.tree_map(np.asarray, new["spectral"])["discriminators_0"]
+    params = dict(msd.named_parameters())
+    for key, buf in u0.items():
+        mod = key.split(".")[2]
+        name = f"convs_{key.split('.')[3]}" if mod == "convs" else "conv_post"
+        _close(dict(msd.named_buffers())[key], u[name]["u"], atol=1e-6)
+        if update_spectral:
+            w = params[key[:-len("u")] + "orig"].detach()
+            v = w.reshape(w.shape[0], -1).t() @ buf
+            _close(dict(msd.named_buffers())[key[:-1] + "v"], v / (v.norm() + 1e-12), atol=1e-6)
+
+
+@pytest.mark.parametrize("update_spectral", [True, False])
+def test_fused_mpd_matches_jax(carried, update_spectral):
+    jvars = carried[0]
+    mpd = MultiPeriodDiscriminator(**MPD, fused=True)
+    mpd.load_state_dict(_fresh(jvars)["mpd"])
+    y, y_hat = _wave(9), _wave(10)
+    jmpd = JaxMPD(**MPD, fused=True)
+    want, want_g, _ = _jax_grads(
+        lambda a, b: (jmpd.apply({"params": jvars["mpd"]["params"]}, a, b, update_spectral),
+                      None), y, y_hat)
+    got, got_g = _port_grads(lambda a, b: mpd(a, b, update_spectral), y, y_hat)
+    got_leaves, want_leaves = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        assert tuple(g.shape) == w.shape
+        _close(g, w)
+    for g, w in zip(got_g, want_g):
+        _close(g, w)

@@ -10,6 +10,7 @@ import torch
 
 from hifigan_tpu_torch.cli import infer
 from hifigan_tpu_torch.cli import train as cli_train
+from hifigan_tpu_torch.models import DiscriminatorS, MultiScaleDiscriminator
 from hifigan_tpu_torch.models.fast_infer import make_fast_vocoder
 from hifigan_tpu_torch.models.streaming import make_streaming_vocoder
 from hifigan_tpu_torch.ops import conv_stack as tstack
@@ -198,7 +199,11 @@ def test_conv_stack_takes_plain_version_only_for_cpu_tensors(monkeypatch):
 
 
 @pytest.mark.parametrize("fn", [tstack.fused_conv_stack, tstack._FusedConvStack.forward,
-                                tstack._FusedConvStack.backward])
+                                tstack._FusedConvStack.backward, tstack.zone_grouped_layer,
+                                tstack.fold_group_zones, tstack.unfold_group_zones,
+                                DiscriminatorS.forward, DiscriminatorS.zone_chain,
+                                DiscriminatorS._zone_run, DiscriminatorS._std_run,
+                                DiscriminatorS._stack])
 def test_conv_stack_wrapper_has_no_fallback(fn):
     """The CUDA branch launches or raises: no try/except around a launch."""
     tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
@@ -309,12 +314,46 @@ def test_msd_conv_and_log_mel_wrappers_have_no_fallback(fn):
 
 
 def test_the_tpu_lane_layout_still_raises():
-    from hifigan_tpu_torch.models import DiscriminatorS, MultiScaleDiscriminator
-
+    """The zone form runs (the TPU lane layout is ported), and still raises,
+    as the JAX package asserts, where a width is not a multiple of 128: its
+    groups could not fill 128 lanes."""
     for build in (lambda: DiscriminatorS(width=16, conv_impl="fused_zoned"),
                   lambda: MultiScaleDiscriminator(width=16, conv_impl="fused_zoned")):
-        with pytest.raises(NotImplementedError, match="fused_zoned"):
+        with pytest.raises(ValueError, match="fused_zoned"):
             build()
+    logits, _ = DiscriminatorS(width=128, conv_impl="fused_zoned")(torch.zeros(1, 64))
+    assert logits.shape[0] == 1
+    msd = MultiScaleDiscriminator(width=128, num_scales=1, conv_impl="fused_zoned")
+    y_d_rs, y_d_gs, _, _ = msd(torch.zeros(1, 64), torch.zeros(1, 64))
+    assert len(y_d_rs) == len(y_d_gs) == 1
+
+
+@pytest.mark.parametrize("t,masked", [(512, False), (257, True)])
+def test_zoned_path_reaches_the_conv_stack_and_has_no_fallback(monkeypatch, t, masked):
+    """``'fused_zoned'`` sends the zone chain (layers 2-5) to
+    ``fused_conv_stack`` as one call of banded layers, their lane masks set
+    where a length does not divide the fold, and the other layers as
+    standard runs; a tensor on another device reaches the wrapper too, which
+    raises: the path never falls back."""
+    from hifigan_tpu_torch.models import discriminators as tdisc
+
+    calls = []
+    real = tdisc.fused_conv_stack
+    monkeypatch.setattr(tdisc, "fused_conv_stack", lambda xs, k, b, specs, **kw: calls.append(
+        (xs[0].device, tuple(specs))) or real(xs, k, b, specs, **kw))
+    d = DiscriminatorS(width=128, conv_impl="fused_zoned")
+    before = tstack.launches()
+    d(torch.zeros(2, t))
+    assert tstack.launches() == before
+    assert [len(specs) for _, specs in calls] == [1, 4, 2]
+    assert all(dev == torch.device("cpu") for dev, _ in calls)
+    zone = calls[1][1]
+    assert all(sp.groups == 16 and sp.c_out == 2048 for sp in zone)
+    assert [sp.kernel for sp in zone] == [5, 8, 12, 21] and [sp.stride for sp in zone] == [1, 2, 2, 1]
+    assert any(sp.lane_period for sp in zone) == masked
+    d.to("meta")
+    with pytest.raises(ValueError, match="fused_conv_stack runs on cpu or cuda"):
+        d(torch.zeros(2, t, device="meta"))
 
 
 def test_stream_fusion_reaches_the_stream_graph_and_has_no_fallback(monkeypatch):

@@ -17,6 +17,7 @@ from hifigan_tpu.parallel import halo as jhalo
 from hifigan_tpu.parallel import mesh as jmesh
 from hifigan_tpu.train import vocoder as jv
 from hifigan_tpu.train.checkpoint import convert_torch_generator
+from hifigan_tpu_torch.config import AttrDict
 from hifigan_tpu_torch.models import Generator
 from hifigan_tpu_torch.ops.conv_stack import LayerSpec, fused_conv_stack
 from hifigan_tpu_torch.parallel import mesh as tmesh
@@ -65,6 +66,7 @@ def runs(tmp_path_factory):
         "mel": rng.standard_normal((2, h["num_mels"], N * (2 * halo + 6))).astype(np.float32),
         "audio": (rng.standard_normal((4, h["segment_size"])) * 0.1).astype(np.float32),
         "stack": stack, "stack_x": stack_x,
+        "forms_h": dict(h, msd_width=128, msd_conv_impl="fused_zoned", disc_fused=True),
         "stack_cot": [rng.standard_normal(s).astype(np.float32) for s in cot_shapes],
     }
     tmp = tmp_path_factory.mktemp("ranks")
@@ -96,6 +98,9 @@ def runs(tmp_path_factory):
     # the single-process port step on the logical batch
     single = tv.create_train_state(h, seed=0, device="cpu")
     _, sm = tv.make_train_step(h)(single, {"audio": inputs["audio"]})
+    forms_h = AttrDict(inputs["forms_h"])
+    forms = tv.create_train_state(forms_h, seed=0, device="cpu")
+    _, fm = tv.make_train_step(forms_h)(forms, {"audio": inputs["audio"]})
     with torch.no_grad():
         full_wav = gen(torch.from_numpy(inputs["mel"])).numpy()
 
@@ -104,6 +109,7 @@ def runs(tmp_path_factory):
                 jafter=_to_port(j1), jm={k: float(v) for k, v in jm.items()},
                 jwin=np.asarray(jwin), joff=np.asarray(joff), jwav=np.asarray(jwav),
                 single=state_dicts(single), sm={k: float(v) for k, v in sm.items()},
+                forms=state_dicts(forms), fm={k: float(v) for k, v in fm.items()},
                 full_wav=full_wav)
 
 
@@ -175,6 +181,19 @@ def test_tp_dp_step_matches_the_single_process_step(runs):
             for key, want in sd.items():
                 np.testing.assert_allclose(got["after"][group][key], want, atol=1e-5, rtol=1e-4,
                                            err_msg=f"{group}.{key}")
+
+
+def test_dp_step_with_the_zoned_msd_and_disc_fused_matches_the_single_process_step(runs):
+    """``msd_conv_impl='fused_zoned'`` (width 128) with ``disc_fused``: each
+    rank's 2 x its rows through the fused discriminators, the zone chain's
+    stack in its mesh form on them."""
+    for got in runs["ranks"]:
+        for k, v in runs["fm"].items():
+            np.testing.assert_allclose(got["forms_metrics"][k], v, rtol=2e-5, err_msg=k)
+        for group, sd in runs["forms"].items():
+            for key, want in sd.items():
+                np.testing.assert_allclose(got["forms_after"][group][key], want, atol=1e-5,
+                                           rtol=1e-4, err_msg=f"{group}.{key}")
 
 
 def test_tp_dp_step_matches_jax_on_its_mesh(runs):

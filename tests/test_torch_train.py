@@ -139,6 +139,50 @@ def test_weight_carriers_round_trip(runs):
 
 
 @pytest.fixture(scope="module")
+def fused_runs():
+    """Step 1 of each package with ``disc_fused: true`` (real and fake as
+    one 2B batch through every sub-discriminator) from the same weights."""
+    h = tiny_train_config()
+    h["disc_fused"] = True
+    state = tv.create_train_state(h, seed=0, device="cpu")
+    jstate = _jax_state(h, state)
+    batch = _batch(h, 2)
+    step = jv.make_train_step(h, donate=False)
+    compiled = step.lower(jstate, batch).compile(
+        compiler_options={"xla_backend_optimization_level": 0,
+                          "xla_llvm_disable_expensive_passes": True})
+    j1, jm1 = compiled(jstate, batch)
+    jax.block_until_ready((j1, jm1))
+    assert state.mpd.fused and state.msd.fused
+    u0 = {k: v.clone() for k, v in state.spectral_msd.items()}
+    state, m1 = tv.make_train_step(h)(state, batch)
+    after = {name: {k: v.clone() for k, v in getattr(state, name).state_dict().items()}
+             for name in ("generator", "mpd", "msd")}
+    return dict(h=h, jm=jm1, m=m1, j1=_to_port(j1), after=after, u0=u0)
+
+
+def test_disc_fused_step_metrics_match_jax(fused_runs):
+    jm, m = fused_runs["jm"], fused_runs["m"]
+    assert set(m) == set(jm) == set(METRICS)
+    for k in METRICS:
+        np.testing.assert_allclose(m[k].item(), float(jm[k]), rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("group", ["generator", "mpd", "msd"])
+def test_disc_fused_parameters_after_one_step_match_jax(fused_runs, group):
+    """As :func:`test_parameters_after_one_step_match_jax`; scale 0's ``u``
+    took one power iteration a traversal of the fused 2B batch."""
+    lr = fused_runs["h"]["learning_rate"]
+    ref, got = fused_runs["j1"][group], fused_runs["after"][group]
+    for key, want in ref.items():
+        if _derived(key, ref):
+            continue
+        diff = (got[key] - want).abs()
+        assert diff.max().item() <= 2 * lr + 1e-6, key
+        assert (diff > 1e-6).float().mean().item() <= LR_FLIP_FRACTION, key
+
+
+@pytest.fixture(scope="module")
 def wav_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("wavs")
     rng = np.random.default_rng(7)

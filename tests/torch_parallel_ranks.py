@@ -65,8 +65,10 @@ def state_dicts(state) -> dict:
 
 
 def v1_work(rank: int, n: int, inp: dict) -> dict:
-    """Mesh, TP rule, halo exchange, sharded generator, the TP x DP V1 step
-    and the conv stack's batch-sharded form, on 4 ranks."""
+    """Mesh, TP rule, halo exchange, sharded generator, the TP x DP V1 step,
+    the DP step under ``msd_conv_impl='fused_zoned'`` and ``disc_fused`` and
+    the conv stack's batch-sharded form, on 4 ranks."""
+    from hifigan_tpu_torch.config import AttrDict
     from hifigan_tpu_torch.ops.conv_stack import fused_conv_stack
     from hifigan_tpu_torch.parallel.halo import halo_exchange, make_sharded_generator
     from hifigan_tpu_torch.parallel.mesh import (
@@ -108,6 +110,15 @@ def v1_work(rank: int, n: int, inp: dict) -> dict:
     moments = {**state.opt_g.state, **state.opt_d.state}
     out["held"] = {names[id(p)]: (tuple(s.shape), tuple(moments[s]["exp_avg"].shape))
                    for p, s, _ in state.shards}
+
+    # the DP step under the zoned MSD and disc_fused (the rank's rows, twice over)
+    forms = AttrDict(inp["forms_h"])
+    fstate = create_train_state(forms, seed=0, device="cpu", mesh=dmesh)
+    fstate, fm = make_train_step(forms, mesh=dmesh)(fstate, shard_batch(
+        {"audio": inp["audio"][row_block(len(inp["audio"]), n, dmesh.coordinate("data"))]},
+        dmesh))
+    out["forms_metrics"] = {k: float(v) for k, v in fm.items()}
+    out["forms_after"] = state_dicts(fstate)
 
     specs, ks, bs = inp["stack"]
     ks = [torch.from_numpy(k).requires_grad_() for k in ks]
